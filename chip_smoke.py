@@ -1,0 +1,316 @@
+#!/usr/bin/env python3
+"""Drive pvderx_torch's main path on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py
+
+Phases, one line each (a failing phase raises, so the script exits non-zero):
+
+1. device   — the card's name and power limit (nvidia-smi).
+2. build    — nvcc builds the window kernel from pvderx_torch/ops/csrc/.
+3. kernel   — the CUDA window kernel against its plain torch version on the
+              same seeded inputs (presets 10 and 50, const-Vdc, unbalanced
+              3-phase, disconnect/cessation, a ragged N): max abs error
+              <= 5e-6 per window.
+4. gate     — the f32 accuracy gate: the gate scenario rolled through the
+              kernel at preset 10, n_sub=64, against the float64 LSODA
+              truth: max abs error <= 4e-6.
+5. main     — the batched env at full width (preset 10, f32, n_sub=64,
+              32768 envs, zero-action policy): reset, a warm-up chunk and two
+              timed chunks of 600 steps (the best counts); the kernel's
+              launch count must equal the steps taken, obs/reward finite,
+              episodes done.
+6. linear   — two chained chunks take 1.5-2.7x one chunk (the timing syncs).
+
+Then the kernel table as one JSON line, the card line, and the device line.
+Needs one CUDA card; imports torch, numpy, scipy and pvderx_torch only.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+KERNEL_TOL = 5e-6        # kernel vs plain, one window, f32
+GATE_TOL = 4e-6          # f32 kernel vs float64 LSODA truth, gate scenario
+N_ENVS = 32768
+N_SUB = 64
+WARM_STEPS = 60
+CHUNK_STEPS = 600        # = the episode horizon: truncation and autoreset fire
+DT = 1.0 / 60.0
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, float32 outside the
+# tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_PER_S = 67e12
+
+
+def phase(name: str, **kv):
+    print(f"[{name}] " + json.dumps(kv), flush=True)
+
+
+def _smi(query: str) -> str:
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
+                          "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def _sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _time_ms(fn, reps: int, device) -> float:
+    """Device time per call by CUDA events around ``reps`` calls."""
+    fn()
+    _sync(device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize(device)
+    return start.elapsed_time(end) / reps
+
+
+def window_inputs(preset, n, seed, device, p_over=None, u_over=None,
+                  disconnect=False):
+    """Seeded numpy inputs of one window: states near the steady state,
+    per-env jitter of grid resistance and insolation, random t0."""
+    import dataclasses
+
+    from pvderx_torch import make_params, nominal_exog, oracle
+    from pvderx_torch.ops.window import P_FIELDS, U_FIELDS
+
+    rng = np.random.default_rng(seed)
+    p = make_params(preset, **(p_over or {}))
+    u = dataclasses.replace(nominal_exog(), **(u_over or {}))
+    y0 = oracle.steady_state(p, u)
+    y = y0[None, :] + 1e-3 * rng.standard_normal((n, p.n_states))
+    t0 = rng.uniform(0.0, 1.0, n)
+    pp = np.array([np.full(n, getattr(p, f)) for f in P_FIELDS])
+    uu = np.array([np.full(n, getattr(u, f)) for f in U_FIELDS])
+    pp[P_FIELDS.index("rg")] *= 1.0 + 0.2 * rng.uniform(-1.0, 1.0, n)
+    uu[U_FIELDS.index("s_irr")] *= 1.0 + 0.2 * rng.uniform(-1.0, 1.0, n)
+    if u.v_g2 > 0.0:
+        uu[U_FIELDS.index("phi_g2")] = rng.uniform(0.0, 2.0 * np.pi, n)
+    if disconnect:
+        conn = (rng.uniform(size=n) < 0.5).astype(float)
+        uu[U_FIELDS.index("conn")] = conn
+        uu[U_FIELDS.index("ces")] = conn * (rng.uniform(size=n) < 0.5)
+    f = lambda a: torch.tensor(a, dtype=torch.float32, device=device)
+    return p.n_ph, f(y), f(t0), f(pp), f(uu)
+
+
+KERNEL_CASES = [
+    # (name, preset, N, kwargs of window_inputs)
+    ("preset10_main", "10", N_ENVS, {}),
+    ("preset50", "50", 4096, {}),
+    ("const_vdc", "50", 2048, dict(p_over=dict(const_vdc=1.0),
+                                    u_over=dict(p_ref=0.6))),
+    ("unbalanced_3ph", "50", 2048, dict(u_over=dict(v_g2=0.15))),
+    ("disconnect_cessation", "10", 4096, dict(disconnect=True)),
+    ("ragged_n1000", "10", 1000, {}),
+]
+
+
+def check_kernel(device, cases=KERNEL_CASES, n_sub=N_SUB):
+    """Phase 3: kernel vs plain on every case. Returns the max error."""
+    from pvderx_torch.ops.window import rk4_window_batch, rk4_window_batch_ref
+
+    worst = 0.0
+    for i, (name, preset, n, kw) in enumerate(cases):
+        n_ph, y, t0, pp, uu = window_inputs(preset, n, i, device, **kw)
+        before = rk4_window_batch.launches
+        out = rk4_window_batch(y, t0, pp, uu, n_ph=n_ph, n_sub=n_sub, dt=DT)
+        ref = rk4_window_batch_ref(y, t0, pp, uu, n_ph=n_ph, n_sub=n_sub, dt=DT)
+        _sync(device)
+        err = float((out - ref).abs().max())
+        moved = rk4_window_batch.launches - before
+        phase("kernel", case=name, n=n, n_ph=n_ph, max_abs_err=err,
+              tol=KERNEL_TOL, launches=moved)
+        if not (np.isfinite(err) and err <= KERNEL_TOL):
+            raise AssertionError(f"kernel vs plain {name}: {err:.3e} > {KERNEL_TOL}")
+        if torch.device(device).type == "cuda" and moved != 1:
+            raise AssertionError(f"launch counter moved by {moved}, not 1")
+        worst = max(worst, err)
+    return worst
+
+
+def check_gate(device, n_steps=120, n=128, n_sub=N_SUB):
+    """Phase 4: the f32 kernel vs the float64 LSODA truth on the gate
+    scenario (preset 10)."""
+    from pvderx_torch import make_params, oracle
+    from pvderx_torch.ops.window import P_FIELDS, U_FIELDS, rk4_window_batch
+
+    p = make_params("10")
+    exogs = oracle.gate_scenario_exogs(n_steps)
+    t = time.perf_counter()
+    truth = oracle.run_trajectory(p, exogs)
+    truth_s = time.perf_counter() - t
+    f = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32, device=device)
+    pp = f([np.full(n, getattr(p, k)) for k in P_FIELDS])
+    y = f(np.broadcast_to(truth[0], (n, p.n_states)))
+    err = 0.0
+    for k, u in enumerate(exogs):
+        uu = f([np.full(n, getattr(u, name)) for name in U_FIELDS])
+        y = rk4_window_batch(y, f(np.full(n, k * DT)), pp, uu, n_ph=p.n_ph,
+                             n_sub=n_sub, dt=DT)
+        err = max(err, float((y.double().cpu() - torch.from_numpy(
+            truth[k + 1])).abs().max()))
+    phase("gate", preset="10", n_sub=n_sub, windows=n_steps,
+          max_abs_err=err, bound=GATE_TOL, lsoda_truth_s=truth_s)
+    if not err <= GATE_TOL:
+        raise AssertionError(f"f32 gate {err:.3e} > {GATE_TOL}")
+    return err
+
+
+def run_main(device, card, n_envs=N_ENVS, n_sub=N_SUB, warm=WARM_STEPS,
+             chunk=CHUNK_STEPS):
+    """Phases 5 and 6: the batched env at full width through the kernel."""
+    from pvderx_torch.env import make_batch_fns, make_env_config, rollout
+    from pvderx_torch.ops.window import (
+        P_FIELDS, U_FIELDS, pack_struct, rk4_window_batch,
+        rk4_window_batch_ref)
+    from pvderx_torch.env import core
+
+    cuda = torch.device(device).type == "cuda"
+    cfg = make_env_config("10", dtype=torch.float32, n_sub=n_sub,
+                          device=device)
+    reset_batch, _ = make_batch_fns(cfg)
+    gen = torch.Generator(device=device).manual_seed(0)
+    policy = lambda obs, g: torch.zeros(obs.shape[0], dtype=torch.int64,
+                                        device=obs.device)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+
+    rk4_window_batch.launches = 0
+    t = time.perf_counter()
+    state, obs = reset_batch(n_envs, gen)
+    init_res_max = float(state.init_res.max())
+    reset_s = time.perf_counter() - t
+    if not np.isfinite(init_res_max):
+        raise AssertionError(f"reset residual not finite: {init_res_max}")
+
+    steps = 0
+    state, obs, rews, dones = rollout(cfg, state, obs, policy, warm, gen)
+    float(rews.sum())
+    steps += warm
+    chunk_s, n_done, finite = float("inf"), 0, True
+    for _ in range(2):                   # best of two timed chunks
+        t = time.perf_counter()
+        state, obs, rews, dones = rollout(cfg, state, obs, policy, chunk, gen)
+        rew_sum = float(rews.sum())      # scalar fetch: the sync
+        chunk_s = min(chunk_s, time.perf_counter() - t)
+        steps += chunk
+        n_done += int(dones.sum())
+        finite &= (bool(torch.isfinite(obs).all())
+                   and bool(torch.isfinite(rews).all()))
+
+    # phase 6: two chained chunks under one scalar-fetch sync
+    ratio = None
+    for _ in range(2):
+        t = time.perf_counter()
+        state, obs, r1, _ = rollout(cfg, state, obs, policy, chunk, gen)
+        state, obs, r2, _ = rollout(cfg, state, obs, policy, chunk, gen)
+        float(r1.sum() + r2.sum())
+        steps += 2 * chunk
+        ratio = (time.perf_counter() - t) / chunk_s
+        if 1.5 <= ratio <= 2.7:
+            break
+    launches = rk4_window_batch.launches
+    peak_mib = (torch.cuda.max_memory_allocated(device) / 2 ** 20
+                if cuda else None)
+
+    # the kernel alone at the main path's shapes, beside its plain version
+    t_win, exog, _, _ = core._pre_window(
+        cfg, state, torch.zeros(n_envs, dtype=torch.int64, device=device))
+    args = (state.y, t_win, pack_struct(state.der, P_FIELDS),
+            pack_struct(exog, U_FIELDS))
+    kw = dict(n_ph=cfg.der.n_ph, n_sub=n_sub, dt=cfg.dt_ctrl)
+    kernel_ms = plain_ms = None
+    if cuda:
+        kernel_ms = _time_ms(lambda: rk4_window_batch(*args, **kw), 20, device)
+        plain_ms = _time_ms(lambda: rk4_window_batch_ref(*args, **kw), 2, device)
+    env_steps_per_s = n_envs * chunk / chunk_s
+    step_ms = 1e3 * chunk_s / chunk
+    phase("main", card=card, n_envs=n_envs, n_sub=n_sub, reset_s=reset_s,
+          init_res_max=init_res_max, timed_steps=chunk,
+          env_steps_per_s=env_steps_per_s, step_ms=step_ms,
+          kernel_ms_per_launch=kernel_ms,
+          kernel_share_of_step=(kernel_ms / step_ms if kernel_ms else None),
+          plain_window_ms=plain_ms, peak_mem_mib=peak_mib,
+          launches=launches, steps=steps, dones=n_done, rew_sum=rew_sum,
+          finite=finite)
+    phase("linear", card=card, two_chunks_over_one=ratio, band=[1.5, 2.7])
+    if launches != steps and cuda:
+        raise AssertionError(f"kernel launches {launches} != steps {steps}")
+    if not finite:
+        raise AssertionError("non-finite obs or reward")
+    if n_done == 0:
+        raise AssertionError("no episode finished in the timed chunks")
+    if not 1.5 <= ratio <= 2.7:
+        raise AssertionError(f"sync linearity {ratio:.2f} outside 1.5-2.7")
+    return dict(launches=launches, kernel_ms=kernel_ms, plain_ms=plain_ms)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    from pvderx_torch.ops import _build
+    from pvderx_torch.ops.window import window_bytes, window_ops
+
+    device = "cuda"
+    kind = torch.cuda.get_device_name(0)
+    card = _smi("name,power.limit")
+    clock_mhz = float(_smi("clocks.max.sm").split()[0])
+    phase("device", torch_device=kind, nvidia_smi=card,
+          max_sm_clock_mhz=clock_mhz, torch=torch.__version__,
+          cuda=torch.version.cuda)
+
+    t = time.perf_counter()
+    _build.build()
+    _build.load()
+    report = [ln.strip() for ln in _build.ptxas_report().splitlines()
+              if "registers" in ln or "spill" in ln]
+    phase("build", seconds=time.perf_counter() - t, ptxas=report)
+
+    kernel_err = check_kernel(device)
+    check_gate(device)
+    main_out = run_main(device, card)
+
+    n_bytes = window_bytes(N_ENVS, 1)
+    n_ops = window_ops(N_ENVS, 1, N_SUB)
+    bytes_ms = 1e3 * n_bytes / PEAK_BYTES_PER_S
+    ops_ms = 1e3 * n_ops / PEAK_F32_PER_S
+    # one operation per FP32 lane per clock at the card's max SM clock
+    issue_ms = 1e3 * n_ops / (132 * 128 * clock_mhz * 1e6)
+    phase("bound", bytes=n_bytes, ops=n_ops, bytes_ms=bytes_ms,
+          ops_ms_at_67tflops=ops_ms, ops_ms_at_lane_issue=issue_ms)
+    print(json.dumps({"kernels": [{
+        "name": "rk4_window",
+        "route": "cuda",
+        "source": "pvderx_torch/ops/csrc/window.cu",
+        "replaces": "pvderx/ops/window.py:56",
+        "launches": main_out["launches"],
+        "max_abs_err": kernel_err,
+        "ms": main_out["kernel_ms"],
+        "plain_ms": main_out["plain_ms"],
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "library_ms": None,
+    }]}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

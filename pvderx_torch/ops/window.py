@@ -1,0 +1,155 @@
+"""The fused RK4 control-window integrator: CUDA kernel and plain version.
+
+This is the hot op of the engine: 4·n_sub RHS evaluations per env per
+control window. `rk4_window_batch` launches the hand-written CUDA kernel
+(`csrc/window.cu`, one thread per env, state in registers, one pass over
+device memory per window) on tensors that live on the card, and runs its
+plain torch version `rk4_window_batch_ref` on tensors that live on the CPU.
+There is no fallback between the two: a CUDA tensor launches the kernel or
+raises.
+
+Both compute what the reference Pallas kernel computes: exog held constant
+over the window; the window-invariant `Prep` hoisted once; the grid phasor
+evaluated twice per substep (k2/k3 share the half-point, and the endpoint is
+the next substep's k1); Kahan-compensated accumulation in a fixed order.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from pvderx_torch.params import DERParams, Exog
+from pvderx_torch.physics import rhs_core
+from pvderx_torch.physics.xp import like
+
+P_FIELDS = [f.name for f in dataclasses.fields(DERParams) if f.name != "n_ph"]
+U_FIELDS = [f.name for f in dataclasses.fields(Exog)]
+
+# Operations per env per RK4 substep of this window program (4 RHS
+# evaluations with hoisted Prep, 2 grid rotations, the Kahan combine), as
+# counted on the same program by the reference's jaxpr op counter
+# (pvderx/diag/roofline.py, recorded in benchmarks/ROOFLINE.json).
+OPS_PER_SUBSTEP = {1: 923, 3: 2371}
+
+
+def pack_struct(tree, fields) -> torch.Tensor:
+    """Stack a dataclass of [N] leaves into one [n_fields, N] tensor."""
+    return torch.stack([getattr(tree, f) for f in fields])
+
+
+def unpack_struct(cls, arr, fields, **meta):
+    """Rebuild the dataclass with index-0 views of a [n_fields, ...] tensor."""
+    kw = {f: arr[i] for i, f in enumerate(fields)}
+    kw.update(meta)
+    return cls(**kw)
+
+
+def window_bytes(n: int, n_ph: int) -> int:
+    """Device-memory bytes one window must move: one f32 read of
+    (t0, y, p_pack, u_pack) and one f32 write of y1 per env."""
+    n_s = 6 * n_ph + 5
+    return 4 * n * (1 + 2 * n_s + len(P_FIELDS) + len(U_FIELDS))
+
+
+def window_ops(n: int, n_ph: int, n_sub: int) -> int:
+    """Arithmetic operations one window of n envs performs."""
+    return OPS_PER_SUBSTEP[n_ph] * n_sub * n
+
+
+def _substep_constants(dt: float, n_sub: int):
+    """(h, h/2, h/6) as Python doubles. Both versions round each ONCE to the
+    working type, as the reference kernel does with its Python-double
+    constants, so the substep times ``t0 + k*h`` agree."""
+    h = dt / n_sub
+    return h, 0.5 * h, h / 6.0
+
+
+def _check(y, t0, p_pack, u_pack, n_ph):
+    n_s = 6 * n_ph + 5
+    if n_ph not in (1, 3):
+        raise ValueError(f"n_ph must be 1 or 3, got {n_ph}")
+    if y.dim() != 2 or y.shape[1] != n_s or y.shape[0] < 1:
+        raise ValueError(f"y must be [N>=1, {n_s}], got {tuple(y.shape)}")
+    n = y.shape[0]
+    want = {"t0": (t0, (n,)), "p_pack": (p_pack, (len(P_FIELDS), n)),
+            "u_pack": (u_pack, (len(U_FIELDS), n))}
+    for name, (a, shape) in want.items():
+        if tuple(a.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(a.shape)}")
+    for name, a in {"y": y, **{k: v[0] for k, v in want.items()}}.items():
+        if a.device != y.device:
+            raise ValueError(f"{name} is on {a.device}, y on {y.device}")
+        if a.dtype != y.dtype:
+            raise ValueError(f"{name} is {a.dtype}, y is {y.dtype}")
+
+
+def rk4_window_batch_ref(y, t0, p_pack, u_pack, *, n_ph: int, n_sub: int,
+                         dt: float):
+    """Plain torch version of the window: the same hoisted arithmetic through
+    `rhs_core` on [n_s, N] field-major tensors. y: [N, n_s]; t0: [N];
+    p_pack: [29, N]; u_pack: [15, N]. Returns y1 [N, n_s]."""
+    _check(y, t0, p_pack, u_pack, n_ph)
+    xp = like(y)
+    p = unpack_struct(DERParams, p_pack, P_FIELDS, n_ph=n_ph)
+    u = unpack_struct(Exog, u_pack, U_FIELDS)
+    prep = rhs_core.prep_invariants(p, u, xp, bdims=1)
+    h, hh, h6 = (torch.tensor(c, dtype=y.dtype, device=y.device)
+                 for c in _substep_constants(dt, n_sub))
+    yt = y.T
+    c = torch.zeros_like(yt)
+    r1 = rhs_core.grid_rot(t0, p, u, xp)
+    for k in range(n_sub):
+        t = t0 + k * h
+        rh = rhs_core.grid_rot(t + hh, p, u, xp)
+        r4 = rhs_core.grid_rot(t + h, p, u, xp)
+        k1 = rhs_core.rhs(yt, t, p, u, xp, prep, r1)
+        k2 = rhs_core.rhs(yt + hh * k1, t + hh, p, u, xp, prep, rh)
+        k3 = rhs_core.rhs(yt + hh * k2, t + hh, p, u, xp, prep, rh)
+        k4 = rhs_core.rhs(yt + h * k3, t + h, p, u, xp, prep, r4)
+        d = (h6 * (k1 + 2.0 * k2 + 2.0 * k3 + k4)) - c
+        s = yt + d
+        c = (s - yt) - d
+        yt, r1 = s, r4
+    return yt.T.contiguous()
+
+
+def rk4_window_batch(y, t0, p_pack, u_pack, *, n_ph: int, n_sub: int,
+                     dt: float):
+    """Integrate all N envs over one control window.
+
+    y: [N, n_s]; t0: [N]; p_pack: [29, N]; u_pack: [15, N], all contiguous
+    and on one device. Returns y1 [N, n_s]. Any N >= 1.
+
+    On the CPU this is `rk4_window_batch_ref` (float32 or float64). On a
+    CUDA device the tensors must be float32, and the CUDA kernel runs on
+    the current stream; each launch adds one to ``rk4_window_batch.launches``.
+    """
+    _check(y, t0, p_pack, u_pack, n_ph)
+    if y.device.type == "cpu":
+        return rk4_window_batch_ref(y, t0, p_pack, u_pack, n_ph=n_ph,
+                                    n_sub=n_sub, dt=dt)
+    if y.device.type != "cuda":
+        raise ValueError(f"unsupported device {y.device}")
+    if y.dtype != torch.float32:
+        raise ValueError(f"the CUDA window kernel takes float32, got {y.dtype}")
+    for name, a in (("y", y), ("t0", t0), ("p_pack", p_pack),
+                    ("u_pack", u_pack)):
+        if not a.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    from pvderx_torch.ops import _build
+    lib = _build.load()
+    out = torch.empty_like(y)
+    h, hh, h6 = _substep_constants(dt, n_sub)
+    with torch.cuda.device(y.device):
+        err = lib.pvderx_rk4_window(
+            y.data_ptr(), t0.data_ptr(), p_pack.data_ptr(), u_pack.data_ptr(),
+            out.data_ptr(), y.shape[0], n_ph, n_sub, h, hh, h6,
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"window kernel launch failed: {_build.error_string(err)}")
+    rk4_window_batch.launches += 1
+    return out
+
+
+rk4_window_batch.launches = 0
