@@ -6,8 +6,10 @@
 Phases, one line each (a failing phase raises, so the script exits non-zero):
 
 1. device   — the card's name and power limit (nvidia-smi).
-2. build    — nvcc builds the window kernel from pvderx_torch/ops/csrc/.
-3. kernel   — the CUDA window kernel against its plain torch version on the
+2. build    — nvcc builds both window kernels from pvderx_torch/ops/csrc/
+              (one nvcc per source, in parallel) and reports each kernel's
+              registers and spills.
+3. kernel   — the CUDA window kernel (K1) against its plain torch version on the
               same seeded inputs (presets 10 and 50, const-Vdc, unbalanced
               3-phase, disconnect/cessation, a ragged N): max abs error
               <= 5e-6 per window.
@@ -20,6 +22,18 @@ Phases, one line each (a failing phase raises, so the script exits non-zero):
               launch count must equal the steps taken, obs/reward finite,
               episodes done.
 6. linear   — two chained chunks take 1.5-2.7x one chunk (the timing syncs).
+7. fleet_kernel — the CUDA fleet window kernel (K2) against its plain
+              version: config 5's shape (N=4096, M=16, insolation spread),
+              preset 50 unbalanced at M=4, per-unit disconnect/cessation, a
+              ragged N=1000 at M=3, M=40 (more than a warp), M=300 (more
+              than 256 threads per env) and M=1 (also against K1): max abs
+              error <= 5e-6 per window, one launch each.
+8. fleet_gate — the f32 fleet kernel vs the coupled float64 LSODA truth on
+              the fleet gate scenario (M=16, n_sub=64, 36 windows): <= 4e-6.
+9. fleet_main — BASELINE config 5 at full width (preset 10, f32, n_sub=64,
+              4096 envs x 16 units, aggregate mode, random actions): reset,
+              warm-up, best of two 600-step chunks, the linearity check, K2
+              launches == steps; then 60 per-unit steps ([N, 13+4M] obs).
 
 Then the kernel table as one JSON line, the card line, and the device line.
 Needs one CUDA card; imports torch, numpy, scipy and pvderx_torch only.
@@ -37,6 +51,7 @@ import torch
 KERNEL_TOL = 5e-6        # kernel vs plain, one window, f32
 GATE_TOL = 4e-6          # f32 kernel vs float64 LSODA truth, gate scenario
 N_ENVS = 32768
+FLEET_ENVS, FLEET_M = 4096, 16   # BASELINE config 5
 N_SUB = 64
 WARM_STEPS = 60
 CHUNK_STEPS = 600        # = the episode horizon: truncation and autoreset fire
@@ -169,6 +184,65 @@ def check_gate(device, n_steps=120, n=128, n_sub=N_SUB):
     return err
 
 
+def _zero_counts():
+    """Set every kernel's launch count to 0 (just before a path is driven)."""
+    from pvderx_torch.ops.window import rk4_fleet_window_batch, rk4_window_batch
+
+    rk4_window_batch.launches = 0
+    rk4_fleet_window_batch.launches = 0
+
+
+def _drive(roll, state, obs, warm, chunk):
+    """A warm-up chunk, the best of two timed chunks, then the sync
+    linearity check: two chained chunks under one scalar-fetch sync.
+    ``roll(state, obs, n_steps) -> (state, obs, rewards, dones)``."""
+    state, obs, rews, _ = roll(state, obs, warm)
+    float(rews.sum())
+    out = dict(steps=warm, chunk_s=float("inf"), dones=0, finite=True)
+    for _ in range(2):                   # best of two timed chunks
+        t = time.perf_counter()
+        state, obs, rews, dones = roll(state, obs, chunk)
+        out["rew_sum"] = float(rews.sum())   # scalar fetch: the sync
+        out["chunk_s"] = min(out["chunk_s"], time.perf_counter() - t)
+        out["steps"] += chunk
+        out["dones"] += int(dones.sum())
+        out["finite"] &= (bool(torch.isfinite(obs).all())
+                          and bool(torch.isfinite(rews).all()))
+    for _ in range(2):
+        t = time.perf_counter()
+        state, obs, r1, _ = roll(state, obs, chunk)
+        state, obs, r2, _ = roll(state, obs, chunk)
+        float(r1.sum() + r2.sum())
+        out["steps"] += 2 * chunk
+        out["ratio"] = (time.perf_counter() - t) / out["chunk_s"]
+        if 1.5 <= out["ratio"] <= 2.7:
+            break
+    return state, obs, out
+
+
+def _check_drive(name, out, launches, cuda):
+    if launches != out["steps"] and cuda:
+        raise AssertionError(
+            f"{name}: kernel launches {launches} != steps {out['steps']}")
+    if not out["finite"]:
+        raise AssertionError(f"{name}: non-finite obs or reward")
+    if out["dones"] == 0:
+        raise AssertionError(f"{name}: no episode finished in the timed chunks")
+    if not 1.5 <= out["ratio"] <= 2.7:
+        raise AssertionError(
+            f"{name}: sync linearity {out['ratio']:.2f} outside 1.5-2.7")
+
+
+def _reset_timed(reset_batch, n_envs, gen):
+    t = time.perf_counter()
+    state, obs = reset_batch(n_envs, gen)
+    init_res_max = float(state.init_res.max())
+    reset_s = time.perf_counter() - t
+    if not np.isfinite(init_res_max):
+        raise AssertionError(f"reset residual not finite: {init_res_max}")
+    return state, obs, reset_s, init_res_max
+
+
 def run_main(device, card, n_envs=N_ENVS, n_sub=N_SUB, warm=WARM_STEPS,
              chunk=CHUNK_STEPS):
     """Phases 5 and 6: the batched env at full width through the kernel."""
@@ -188,40 +262,11 @@ def run_main(device, card, n_envs=N_ENVS, n_sub=N_SUB, warm=WARM_STEPS,
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
 
-    rk4_window_batch.launches = 0
-    t = time.perf_counter()
-    state, obs = reset_batch(n_envs, gen)
-    init_res_max = float(state.init_res.max())
-    reset_s = time.perf_counter() - t
-    if not np.isfinite(init_res_max):
-        raise AssertionError(f"reset residual not finite: {init_res_max}")
-
-    steps = 0
-    state, obs, rews, dones = rollout(cfg, state, obs, policy, warm, gen)
-    float(rews.sum())
-    steps += warm
-    chunk_s, n_done, finite = float("inf"), 0, True
-    for _ in range(2):                   # best of two timed chunks
-        t = time.perf_counter()
-        state, obs, rews, dones = rollout(cfg, state, obs, policy, chunk, gen)
-        rew_sum = float(rews.sum())      # scalar fetch: the sync
-        chunk_s = min(chunk_s, time.perf_counter() - t)
-        steps += chunk
-        n_done += int(dones.sum())
-        finite &= (bool(torch.isfinite(obs).all())
-                   and bool(torch.isfinite(rews).all()))
-
-    # phase 6: two chained chunks under one scalar-fetch sync
-    ratio = None
-    for _ in range(2):
-        t = time.perf_counter()
-        state, obs, r1, _ = rollout(cfg, state, obs, policy, chunk, gen)
-        state, obs, r2, _ = rollout(cfg, state, obs, policy, chunk, gen)
-        float(r1.sum() + r2.sum())
-        steps += 2 * chunk
-        ratio = (time.perf_counter() - t) / chunk_s
-        if 1.5 <= ratio <= 2.7:
-            break
+    _zero_counts()
+    state, obs, reset_s, init_res_max = _reset_timed(reset_batch, n_envs, gen)
+    state, obs, out = _drive(
+        lambda s, o, k: rollout(cfg, s, o, policy, k, gen), state, obs, warm,
+        chunk)
     launches = rk4_window_batch.launches
     peak_mib = (torch.cuda.max_memory_allocated(device) / 2 ** 20
                 if cuda else None)
@@ -236,26 +281,241 @@ def run_main(device, card, n_envs=N_ENVS, n_sub=N_SUB, warm=WARM_STEPS,
     if cuda:
         kernel_ms = _time_ms(lambda: rk4_window_batch(*args, **kw), 20, device)
         plain_ms = _time_ms(lambda: rk4_window_batch_ref(*args, **kw), 2, device)
-    env_steps_per_s = n_envs * chunk / chunk_s
-    step_ms = 1e3 * chunk_s / chunk
+    step_ms = 1e3 * out["chunk_s"] / chunk
     phase("main", card=card, n_envs=n_envs, n_sub=n_sub, reset_s=reset_s,
           init_res_max=init_res_max, timed_steps=chunk,
-          env_steps_per_s=env_steps_per_s, step_ms=step_ms,
+          env_steps_per_s=n_envs * chunk / out["chunk_s"], step_ms=step_ms,
           kernel_ms_per_launch=kernel_ms,
           kernel_share_of_step=(kernel_ms / step_ms if kernel_ms else None),
           plain_window_ms=plain_ms, peak_mem_mib=peak_mib,
-          launches=launches, steps=steps, dones=n_done, rew_sum=rew_sum,
-          finite=finite)
-    phase("linear", card=card, two_chunks_over_one=ratio, band=[1.5, 2.7])
-    if launches != steps and cuda:
-        raise AssertionError(f"kernel launches {launches} != steps {steps}")
-    if not finite:
-        raise AssertionError("non-finite obs or reward")
-    if n_done == 0:
-        raise AssertionError("no episode finished in the timed chunks")
-    if not 1.5 <= ratio <= 2.7:
-        raise AssertionError(f"sync linearity {ratio:.2f} outside 1.5-2.7")
+          launches=launches, steps=out["steps"], dones=out["dones"],
+          rew_sum=out["rew_sum"], finite=out["finite"])
+    phase("linear", card=card, two_chunks_over_one=out["ratio"],
+          band=[1.5, 2.7])
+    _check_drive("main", out, launches, cuda)
     return dict(launches=launches, kernel_ms=kernel_ms, plain_ms=plain_ms)
+
+
+def fleet_inputs(preset, n, m, seed, device, u_over=None, shade=0.0,
+                 disconnect=False):
+    """Seeded numpy inputs of one fleet window: unit states near the
+    steady state, random t0, per-unit insolation shading up to ``shade``.
+    The feeder fields (rg, dw_g, phi_g2) differ from unit to unit on
+    purpose: both versions must read them from unit 0 alone."""
+    import dataclasses
+
+    from pvderx_torch import make_params, nominal_exog, oracle
+    from pvderx_torch.ops.window import P_FIELDS, U_FIELDS
+
+    rng = np.random.default_rng(seed)
+    p = make_params(preset)
+    u = dataclasses.replace(nominal_exog(), **(u_over or {}))
+    y0 = oracle.steady_state(p, u)
+    y = y0 + 1e-3 * rng.standard_normal((n, m, p.n_states))
+    t0 = rng.uniform(0.0, 1.0, n)
+    pp = np.array([np.full((n, m), getattr(p, f)) for f in P_FIELDS])
+    uu = np.array([np.full((n, m), getattr(u, f)) for f in U_FIELDS])
+    pp[P_FIELDS.index("rg")] *= 1.0 + 0.2 * rng.uniform(-1.0, 1.0, (n, m))
+    uu[U_FIELDS.index("s_irr")] *= 1.0 - shade * rng.uniform(size=(n, m))
+    uu[U_FIELDS.index("dw_g")] = rng.uniform(-0.01, 0.01, (n, m))
+    if u.v_g2 > 0.0:
+        uu[U_FIELDS.index("phi_g2")] = rng.uniform(0.0, 2.0 * np.pi, (n, m))
+    if disconnect:
+        conn = (rng.uniform(size=(n, m)) < 0.6).astype(float)
+        uu[U_FIELDS.index("conn")] = conn
+        uu[U_FIELDS.index("ces")] = conn * (rng.uniform(size=(n, m)) < 0.5)
+    f = lambda a: torch.tensor(a, dtype=torch.float32, device=device)
+    return p.n_ph, f(y), f(t0), f(pp), f(uu)
+
+
+FLEET_CASES = [
+    # (name, preset, N, M, kwargs of fleet_inputs)
+    ("config5_shaded", "10", FLEET_ENVS, FLEET_M, dict(shade=0.25)),
+    ("preset50_unbalanced_m4", "50", 1024, 4, dict(u_over=dict(v_g2=0.15))),
+    ("disconnect_cessation_m8", "10", 2048, 8, dict(disconnect=True)),
+    ("ragged_n1000_m3", "10", 1000, 3, {}),
+    ("m40_two_warps", "10", 512, 40, dict(shade=0.25)),
+    ("m300_ten_warps", "10", 8, 300, dict(shade=0.25)),
+    ("m1_vs_k1", "10", 4096, 1, {}),
+]
+
+
+def check_fleet_kernel(device, cases=FLEET_CASES, n_sub=N_SUB):
+    """Phase 7: the fleet kernel vs its plain version on every case (and at
+    M=1 vs the single-DER kernel). Returns the max error."""
+    from pvderx_torch.ops.window import (
+        rk4_fleet_window_batch, rk4_fleet_window_batch_ref, rk4_window_batch)
+
+    cuda = torch.device(device).type == "cuda"
+    worst = 0.0
+    for i, (name, preset, n, m, kw) in enumerate(cases):
+        n_ph, y, t0, pp, uu = fleet_inputs(preset, n, m, 100 + i, device, **kw)
+        before = rk4_fleet_window_batch.launches
+        out = rk4_fleet_window_batch(y, t0, pp, uu, n_ph=n_ph, m=m,
+                                     n_sub=n_sub, dt=DT)
+        moved = rk4_fleet_window_batch.launches - before
+        ref = rk4_fleet_window_batch_ref(y, t0, pp, uu, n_ph=n_ph, m=m,
+                                         n_sub=n_sub, dt=DT)
+        _sync(device)
+        err = float((out - ref).abs().max())
+        extra = {}
+        if m == 1:
+            k1 = rk4_window_batch(y[:, 0].contiguous(), t0,
+                                  pp[:, :, 0].contiguous(),
+                                  uu[:, :, 0].contiguous(), n_ph=n_ph,
+                                  n_sub=n_sub, dt=DT)
+            extra["vs_k1"] = float((out[:, 0] - k1).abs().max())
+        phase("fleet_kernel", case=name, n=n, m=m, n_ph=n_ph,
+              max_abs_err=err, tol=KERNEL_TOL, launches=moved, **extra)
+        for what, e in (("plain", err), *extra.items()):
+            if not (np.isfinite(e) and e <= KERNEL_TOL):
+                raise AssertionError(
+                    f"fleet kernel vs {what} {name}: {e:.3e} > {KERNEL_TOL}")
+        if cuda and moved != 1:
+            raise AssertionError(f"fleet launch counter moved by {moved}, not 1")
+        worst = max(worst, err)
+    return worst
+
+
+def check_fleet_gate(device, m=FLEET_M, n_steps=36, n=128, n_sub=N_SUB):
+    """Phase 8: the f32 fleet kernel vs the coupled float64 LSODA truth on
+    the fleet gate scenario (preset 10)."""
+    from pvderx_torch import make_params, oracle
+    from pvderx_torch.ops.window import (
+        P_FIELDS, U_FIELDS, rk4_fleet_window_batch)
+
+    p = make_params("10")
+    fp, fus = oracle.fleet_gate_scenario(p, m, n_steps)
+    t = time.perf_counter()
+    truth = oracle.run_fleet_trajectory(fp, fus)
+    truth_s = time.perf_counter() - t
+    f = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32, device=device)
+    per_env = lambda tree, names: f([np.broadcast_to(getattr(tree, k), (n, m))
+                                     for k in names])
+    pp = per_env(fp, P_FIELDS)
+    y = f(np.broadcast_to(truth[0], (n, m, p.n_states)))
+    err = 0.0
+    for k, fu in enumerate(fus):
+        y = rk4_fleet_window_batch(y, f(np.full(n, k * DT)), pp,
+                                   per_env(fu, U_FIELDS), n_ph=p.n_ph, m=m,
+                                   n_sub=n_sub, dt=DT)
+        err = max(err, float((y.double().cpu() - torch.from_numpy(
+            truth[k + 1])).abs().max()))
+    phase("fleet_gate", preset="10", m=m, n_sub=n_sub, windows=n_steps,
+          max_abs_err=err, bound=GATE_TOL, lsoda_truth_s=truth_s)
+    if not err <= GATE_TOL:
+        raise AssertionError(f"f32 fleet gate {err:.3e} > {GATE_TOL}")
+    return err
+
+
+def run_fleet_main(device, card, n_envs=FLEET_ENVS, m=FLEET_M, n_sub=N_SUB,
+                   warm=WARM_STEPS, chunk=CHUNK_STEPS, per_unit_steps=60):
+    """Phase 9: BASELINE config 5 at full width through the fleet kernel,
+    then a short per-unit rollout."""
+    from pvderx_torch.env import (
+        fleet_obs_dim, fleet_rollout, make_fleet_batch_fns, make_fleet_config)
+    from pvderx_torch.env import fleet
+    from pvderx_torch.ops.window import (
+        P_FIELDS, U_FIELDS, fleet_window_bytes, fleet_window_ops, pack_struct,
+        rk4_fleet_window_batch, rk4_fleet_window_batch_ref)
+
+    cuda = torch.device(device).type == "cuda"
+    kw = dict(dtype=torch.float32, n_sub=n_sub, device=device)
+    fc = make_fleet_config("10", m=m, **kw)
+    reset_batch, _ = make_fleet_batch_fns(fc)
+    gen = torch.Generator(device=device).manual_seed(0)
+    policy = lambda obs, g: torch.randint(0, 5, (obs.shape[0],), generator=g,
+                                          device=obs.device)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+
+    _zero_counts()
+    state, obs, reset_s, init_res_max = _reset_timed(reset_batch, n_envs, gen)
+    state, obs, out = _drive(
+        lambda s, o, k: fleet_rollout(fc, s, o, policy, k, gen), state, obs,
+        warm, chunk)
+    launches = rk4_fleet_window_batch.launches
+    peak_mib = (torch.cuda.max_memory_allocated(device) / 2 ** 20
+                if cuda else None)
+
+    # the kernel alone at the main path's shapes, beside its plain version
+    t_win, fu, _ = fleet._pre_window(
+        fc, state, torch.zeros(n_envs, dtype=torch.int64, device=device))
+    args = (state.y, t_win, pack_struct(state.der, P_FIELDS),
+            pack_struct(fu, U_FIELDS))
+    wkw = dict(n_ph=1, m=m, n_sub=n_sub, dt=fc.base.dt_ctrl)
+    kernel_ms = plain_ms = None
+    if cuda:
+        kernel_ms = _time_ms(lambda: rk4_fleet_window_batch(*args, **wkw), 20,
+                             device)
+        plain_ms = _time_ms(lambda: rk4_fleet_window_batch_ref(*args, **wkw),
+                            2, device)
+    bytes_ms = 1e3 * fleet_window_bytes(n_envs, m, 1) / PEAK_BYTES_PER_S
+    ops_ms = 1e3 * fleet_window_ops(n_envs, m, 1, n_sub) / PEAK_F32_PER_S
+    step_ms = 1e3 * out["chunk_s"] / chunk
+    rate = n_envs * chunk / out["chunk_s"]
+    phase("fleet_main", card=card, n_envs=n_envs, m=m, n_sub=n_sub,
+          reset_s=reset_s, init_res_max=init_res_max, timed_steps=chunk,
+          env_steps_per_s=rate, der_steps_per_s=rate * m, step_ms=step_ms,
+          kernel_ms_per_launch=kernel_ms,
+          kernel_share_of_step=(kernel_ms / step_ms if kernel_ms else None),
+          plain_window_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+          peak_mem_mib=peak_mib, launches=launches, steps=out["steps"],
+          dones=out["dones"], rew_sum=out["rew_sum"], finite=out["finite"])
+    phase("fleet_linear", card=card, two_chunks_over_one=out["ratio"],
+          band=[1.5, 2.7])
+    _check_drive("fleet_main", out, launches, cuda)
+
+    # per-unit mode: [N, M] actions, the 13 + 4M observation
+    fc_pu = make_fleet_config("10", m=m, per_unit=True, **kw)
+    reset_pu, _ = make_fleet_batch_fns(fc_pu)
+    st, ob = reset_pu(n_envs, gen)
+    before = rk4_fleet_window_batch.launches
+    st, ob, rews, _ = fleet_rollout(
+        fc_pu, st, ob, lambda o, g: torch.randint(
+            0, 5, (o.shape[0], m), generator=g, device=o.device),
+        per_unit_steps, gen)
+    moved = rk4_fleet_window_batch.launches - before
+    ok = (tuple(ob.shape) == (n_envs, fleet_obs_dim(fc_pu))
+          and bool(torch.isfinite(ob).all()) and bool(torch.isfinite(rews).all()))
+    phase("fleet_per_unit", n_envs=n_envs, m=m, steps=per_unit_steps,
+          obs_shape=list(ob.shape), finite=ok, launches=moved)
+    if not ok:
+        raise AssertionError(f"per-unit obs {tuple(ob.shape)} wrong or not finite")
+    if cuda and moved != per_unit_steps:
+        raise AssertionError(f"per-unit launches {moved} != {per_unit_steps}")
+    return dict(launches=launches, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def ptxas_summary(report: str) -> dict:
+    """Registers and spill bytes per kernel from `nvcc -Xptxas -v` output."""
+    import re
+
+    out, cur = {}, None
+    for ln in report.splitlines():
+        hit = re.search(r"(?:entry function|Function properties for) '?(\S+?)'?"
+                        r"(?: for|$)", ln)
+        if hit:
+            name = hit.group(1)
+            k = re.search(r"((?:fleet_)?window_kernel)I((?:Li\d+E)+)E", name)
+            if k:
+                args = re.findall(r"Li(\d+)E", k.group(2))
+                name = f"{k.group(1)}<{','.join(args)}>"
+            cur = name
+            out.setdefault(cur, {})
+            continue
+        if cur is None:
+            continue
+        sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if sp:
+            out[cur].update(spill_stores=int(sp.group(1)),
+                            spill_loads=int(sp.group(2)))
+        rg = re.search(r"Used (\d+) registers", ln)
+        if rg:
+            out[cur]["registers"] = int(rg.group(1))
+    return out
 
 
 def main() -> int:
@@ -276,13 +536,15 @@ def main() -> int:
     t = time.perf_counter()
     _build.build()
     _build.load()
-    report = [ln.strip() for ln in _build.ptxas_report().splitlines()
-              if "registers" in ln or "spill" in ln]
-    phase("build", seconds=time.perf_counter() - t, ptxas=report)
+    phase("build", seconds=time.perf_counter() - t,
+          ptxas=ptxas_summary(_build.ptxas_report()))
 
     kernel_err = check_kernel(device)
     check_gate(device)
     main_out = run_main(device, card)
+    fleet_err = check_fleet_kernel(device)
+    check_fleet_gate(device)
+    fleet_out = run_fleet_main(device, card)
 
     n_bytes = window_bytes(N_ENVS, 1)
     n_ops = window_ops(N_ENVS, 1, N_SUB)
@@ -303,6 +565,18 @@ def main() -> int:
         "plain_ms": main_out["plain_ms"],
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "library_ms": None,
+    }, {
+        "name": "rk4_fleet_window",
+        "route": "cuda",
+        "source": "pvderx_torch/ops/csrc/fleet_window.cu",
+        "replaces": "pvderx/ops/window.py:103",
+        "launches": fleet_out["launches"],
+        "max_abs_err": fleet_err,
+        "ms": fleet_out["kernel_ms"],
+        "plain_ms": fleet_out["plain_ms"],
+        "bound_ms": fleet_out["bound_ms"],
+        "bound_by": fleet_out["bound_by"],
         "library_ms": None,
     }]}), flush=True)
     print(card, flush=True)

@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
 """Profile the port's batched env step on one CUDA card.
 
-    python3 profile_torch_step.py
+    python3 profile_torch_step.py            # the single-DER main path
+    python3 profile_torch_step.py --fleet    # the fleet (BASELINE config 5)
 
 Runs the main path (preset 10, f32, n_sub=64, 32768 envs, zero-action policy,
-autoreset) under `torch.profiler` for 20 steps after 10 warm-up steps, and
-prints one JSON line: wall ms per step, device-busy ms per step (sum of
+autoreset), or with ``--fleet`` the fleet path (preset 10, f32, n_sub=64,
+4096 envs x 16 units, aggregate mode, zero-action policy), under
+`torch.profiler` for 20 steps after 10 warm-up steps, and prints one JSON
+line: wall ms per step, device-busy ms per step (sum of
 kernel times; one stream, so kernels do not overlap), the device's idle
 share, kernel launches per step, and the kernels that take the most device
 time.
@@ -23,30 +26,42 @@ from torch.profiler import ProfilerActivity, profile
 
 
 N_ENVS, N_SUB, STEPS, WARM = 32768, 64, 20, 10
+FLEET_ENVS, FLEET_M = 4096, 16
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch_step: no CUDA device is available", file=sys.stderr)
         return 1
-    from pvderx_torch.env import make_batch_fns, make_env_config, rollout
+    from pvderx_torch.env import (
+        fleet_rollout, make_batch_fns, make_env_config, make_fleet_batch_fns,
+        make_fleet_config, rollout)
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
-    cfg = make_env_config("10", dtype=torch.float32, n_sub=N_SUB,
-                          device="cuda")
-    reset_batch, _ = make_batch_fns(cfg)
+    is_fleet = "--fleet" in sys.argv[1:]
+    kw = dict(dtype=torch.float32, n_sub=N_SUB, device="cuda")
+    if is_fleet:
+        n_envs, shape = FLEET_ENVS, {"n_envs": FLEET_ENVS, "m": FLEET_M}
+        cfg = make_fleet_config("10", m=FLEET_M, **kw)
+        reset_batch, _ = make_fleet_batch_fns(cfg)
+        roll = fleet_rollout
+    else:
+        n_envs, shape = N_ENVS, {"n_envs": N_ENVS}
+        cfg = make_env_config("10", **kw)
+        reset_batch, _ = make_batch_fns(cfg)
+        roll = rollout
     gen = torch.Generator(device="cuda").manual_seed(0)
-    state, obs = reset_batch(N_ENVS, gen)
+    state, obs = reset_batch(n_envs, gen)
     policy = lambda o, g: torch.zeros(o.shape[0], dtype=torch.int64,
                                       device=o.device)
-    state, obs, r, _ = rollout(cfg, state, obs, policy, WARM, gen)
+    state, obs, r, _ = roll(cfg, state, obs, policy, WARM, gen)
     float(r.sum())
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        state, obs, r, _ = rollout(cfg, state, obs, policy, STEPS, gen)
+        state, obs, r, _ = roll(cfg, state, obs, policy, STEPS, gen)
         float(r.sum())
         wall_s = time.perf_counter() - t
 
@@ -62,7 +77,8 @@ def main() -> int:
     wall_ms = 1e3 * wall_s / STEPS
     busy_ms = 1e-3 * busy_us / STEPS
     print(json.dumps({
-        "card": card, "n_envs": N_ENVS, "n_sub": N_SUB,
+        "card": card, "path": "fleet" if is_fleet else "single", **shape,
+        "n_sub": N_SUB,
         "steps": STEPS, "wall_ms_per_step": wall_ms,
         "device_busy_ms_per_step": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms,

@@ -23,14 +23,19 @@ def _where_done(done, a, b):
     return torch.where(d, a, b)
 
 
+def autoreset(done, restarted, stepped):
+    """Select the soft-reset (state, obs) where done, else the stepped one."""
+    (st_r, obs_r), (st1, obs) = restarted, stepped
+    return (tree_map(lambda a, b: _where_done(done, a, b), st_r, st1),
+            _where_done(done, obs_r, obs))
+
+
 def _step_batch_impl(cfg: core.EnvConfig, state, actions, generator,
                      p_pack=None):
     """core.step of every env, then the autoreset select on done."""
     st1, obs, reward, done, info = core.step(cfg, state, actions, p_pack)
     uv = core.event_draws(cfg, state.y.shape[0], generator)
-    st_r, obs_r = core._soft_reset(cfg, st1, uv)
-    st2 = tree_map(lambda a, b: _where_done(done, a, b), st_r, st1)
-    obs2 = _where_done(done, obs_r, obs)
+    st2, obs2 = autoreset(done, core._soft_reset(cfg, st1, uv), (st1, obs))
     return st2, obs2, reward, done, info
 
 
@@ -61,14 +66,22 @@ def rollout(cfg: core.EnvConfig, state, obs, policy_fn, n_steps: int,
     policy_fn(obs, generator) -> actions. Returns (state, obs, rewards [T, N],
     dones [T, N]).
     """
+    return rollout_with(_step_batch_impl, cfg, state, obs, policy_fn, n_steps,
+                        generator)
+
+
+def rollout_with(step_impl, cfg, state, obs, policy_fn, n_steps: int,
+                 generator: torch.Generator):
+    """The rollout loop over ``step_impl(cfg, state, actions, generator,
+    p_pack)``, a batched step with autoreset."""
     # per-env params never change across steps (soft reset keeps der), so the
-    # [29, N] kernel pack is loop-invariant: pack once outside the loop
+    # kernel's params pack is loop-invariant: pack once outside the loop
     p_pack = pack_struct(state.der, P_FIELDS)
     rews, dones = [], []
     for _ in range(n_steps):
         acts = policy_fn(obs, generator)
-        state, obs, rew, done, _ = _step_batch_impl(
-            cfg, state, acts, generator, p_pack)
+        state, obs, rew, done, _ = step_impl(cfg, state, acts, generator,
+                                             p_pack)
         rews.append(rew)
         dones.append(done)
     return state, obs, torch.stack(rews), torch.stack(dones)

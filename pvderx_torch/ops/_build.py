@@ -1,9 +1,12 @@
 """Build and load the CUDA kernels of `pvderx_torch.ops` (csrc/*.cu).
 
-The library is compiled with nvcc at first use into ``ops/_build/`` (listed
-in .gitignore), named by a hash of its source and flags, and loaded with
-``ctypes``: the sources have a plain C interface and include no PyTorch
-header, so a build takes seconds. Nothing here runs at import time.
+Every ``csrc/*.cu`` is compiled with nvcc at first use, one nvcc process per
+source, all started together, and the objects are linked into one shared
+library in ``ops/_build/`` (listed in .gitignore). The library is named by a
+hash of every ``*.cu`` and ``*.cuh`` under ``csrc/`` and of the flags, so an
+edit to a shared header builds a new library. It is loaded with ``ctypes``:
+the sources have a plain C interface and include no PyTorch header, so a
+build takes seconds. Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -15,10 +18,10 @@ import subprocess
 import threading
 from pathlib import Path
 
-SRC = Path(__file__).parent / "csrc" / "window.cu"
+CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib: list[ctypes.CDLL] = []   # the library once loaded in this process
@@ -36,25 +39,43 @@ def nvcc() -> str:
     return found
 
 
-def library_path() -> Path:
-    tag = hashlib.sha256(SRC.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libpvderx_window_{tag.hexdigest()[:16]}.so"
+def library_path(src_dir: Path = CSRC) -> Path:
+    """Where the library built from ``src_dir`` lives: named by a hash of the
+    flags and of every source and header there (name and content)."""
+    tag = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted([*src_dir.glob("*.cu"), *src_dir.glob("*.cuh")]):
+        tag.update(f.name.encode() + b"\0" + f.read_bytes())
+    return BUILD_DIR / f"libpvderx_kernels_{tag.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
-    """Compile the library unless this source and flags are already built.
+    """Compile the library unless these sources and flags are already built.
     The compiler's register/spill report is kept beside it (`ptxas_report`)."""
     so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SRC)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with code {proc.returncode}:\n{proc.stdout}{proc.stderr}")
-    so.with_suffix(".ptxas.txt").write_text(proc.stdout + proc.stderr)
+    stem = f"{so.stem}.{os.getpid()}"
+    srcs = sorted(CSRC.glob("*.cu"))
+    objs = [BUILD_DIR / f"{stem}.{src.stem}.o" for src in srcs]
+    procs = [subprocess.Popen([nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(srcs, objs)]
+    outs = [p.communicate()[0] for p in procs]
+    for src, p, out in zip(srcs, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed on {src.name} with code {p.returncode}:\n{out}")
+    tmp = BUILD_DIR / f"{stem}.tmp"
+    link = subprocess.run([nvcc(), "-shared", "-o", str(tmp),
+                           *map(str, objs)], capture_output=True, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed with code {link.returncode}:\n"
+                           f"{link.stdout}{link.stderr}")
+    for obj in objs:
+        obj.unlink()
+    so.with_suffix(".ptxas.txt").write_text("".join(outs))
     os.replace(tmp, so)
     return so
 
@@ -72,10 +93,14 @@ def load() -> ctypes.CDLL:
     with _lock:
         if not _lib:
             lib = ctypes.CDLL(str(build()))
-            fn = lib.pvderx_rk4_window
-            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
-                           + [ctypes.c_float] * 3 + [ctypes.c_void_p])
-            fn.restype = ctypes.c_int
+            ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            # (y, t0, p, u, out, n, [m,] n_ph, n_sub, h, h/2, h/6, stream)
+            lib.pvderx_rk4_window.argtypes = (
+                [ptr] * 5 + [i] * 3 + [f] * 3 + [ptr])
+            lib.pvderx_rk4_fleet_window.argtypes = (
+                [ptr] * 5 + [i] * 4 + [f] * 3 + [ptr])
+            for fn in (lib.pvderx_rk4_window, lib.pvderx_rk4_fleet_window):
+                fn.restype = ctypes.c_int
             lib.pvderx_error_string.argtypes = [ctypes.c_int]
             lib.pvderx_error_string.restype = ctypes.c_char_p
             _lib.append(lib)

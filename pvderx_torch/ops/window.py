@@ -1,12 +1,18 @@
-"""The fused RK4 control-window integrator: CUDA kernel and plain version.
+"""The fused RK4 control-window integrators: CUDA kernels and plain versions.
 
 This is the hot op of the engine: 4·n_sub RHS evaluations per env per
-control window. `rk4_window_batch` launches the hand-written CUDA kernel
-(`csrc/window.cu`, one thread per env, state in registers, one pass over
-device memory per window) on tensors that live on the card, and runs its
-plain torch version `rk4_window_batch_ref` on tensors that live on the CPU.
-There is no fallback between the two: a CUDA tensor launches the kernel or
-raises.
+control window. Two windows, each a hand-written CUDA kernel beside its
+plain torch version:
+
+- `rk4_window_batch`, one DER per env (`csrc/window.cu`, one thread per env,
+  state in registers, one pass over device memory per window);
+- `rk4_fleet_window_batch`, M DERs per env on a shared feeder
+  (`csrc/fleet_window.cu`, one thread per unit, the M-mean injection reduced
+  across the env's lanes in every RHS evaluation).
+
+A wrapper launches its kernel on tensors that live on the card and runs the
+plain version (`*_ref`) on tensors that live on the CPU. There is no
+fallback between the two: a CUDA tensor launches the kernel or raises.
 
 Both compute what the reference Pallas kernel computes: exog held constant
 over the window; the window-invariant `Prep` hoisted once; the grid phasor
@@ -20,7 +26,7 @@ import dataclasses
 import torch
 
 from pvderx_torch.params import DERParams, Exog
-from pvderx_torch.physics import rhs_core
+from pvderx_torch.physics import fleet, rhs_core
 from pvderx_torch.physics.xp import like
 
 P_FIELDS = [f.name for f in dataclasses.fields(DERParams) if f.name != "n_ph"]
@@ -65,15 +71,15 @@ def _substep_constants(dt: float, n_sub: int):
     return h, 0.5 * h, h / 6.0
 
 
-def _check(y, t0, p_pack, u_pack, n_ph):
+def _check(y, n_ph, **want):
+    """Shapes, devices and dtypes of a window's arguments: y ends in n_s
+    states; ``want`` maps each other argument's name to (tensor, shape)."""
     n_s = 6 * n_ph + 5
     if n_ph not in (1, 3):
         raise ValueError(f"n_ph must be 1 or 3, got {n_ph}")
-    if y.dim() != 2 or y.shape[1] != n_s or y.shape[0] < 1:
-        raise ValueError(f"y must be [N>=1, {n_s}], got {tuple(y.shape)}")
-    n = y.shape[0]
-    want = {"t0": (t0, (n,)), "p_pack": (p_pack, (len(P_FIELDS), n)),
-            "u_pack": (u_pack, (len(U_FIELDS), n))}
+    if y.shape[-1] != n_s or min(y.shape) < 1:
+        raise ValueError(f"y must end in {n_s} states with every axis >= 1, "
+                         f"got {tuple(y.shape)}")
     for name, (a, shape) in want.items():
         if tuple(a.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(a.shape)}")
@@ -84,12 +90,56 @@ def _check(y, t0, p_pack, u_pack, n_ph):
             raise ValueError(f"{name} is {a.dtype}, y is {y.dtype}")
 
 
+def _check_single(y, t0, p_pack, u_pack, n_ph):
+    if y.dim() != 2:
+        raise ValueError(f"y must be [N, n_s], got {tuple(y.shape)}")
+    n = y.shape[0]
+    _check(y, n_ph, t0=(t0, (n,)), p_pack=(p_pack, (len(P_FIELDS), n)),
+           u_pack=(u_pack, (len(U_FIELDS), n)))
+
+
+def _check_fleet(y, t0, p_pack, u_pack, n_ph, m):
+    if y.dim() != 3 or y.shape[1] != m:
+        raise ValueError(f"y must be [N, M={m}, n_s], got {tuple(y.shape)}")
+    n = y.shape[0]
+    _check(y, n_ph, t0=(t0, (n,)), p_pack=(p_pack, (len(P_FIELDS), n, m)),
+           u_pack=(u_pack, (len(U_FIELDS), n, m)))
+
+
+def _launch(entry: str, what: str, y, t0, p_pack, u_pack, *dims, n_sub: int,
+            dt: float):
+    """Launch the C entry ``entry`` of the kernels' library on the current
+    stream: (y, t0, p, u, out, *dims, n_sub, h, h/2, h/6, stream). The
+    arguments must be float32, contiguous, on one CUDA device."""
+    if y.device.type != "cuda":
+        raise ValueError(f"unsupported device {y.device}")
+    if y.dtype != torch.float32:
+        raise ValueError(f"the CUDA {what} kernel takes float32, got {y.dtype}")
+    for name, a in (("y", y), ("t0", t0), ("p_pack", p_pack),
+                    ("u_pack", u_pack)):
+        if not a.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    from pvderx_torch.ops import _build
+    lib = _build.load()
+    out = torch.empty_like(y)
+    h, hh, h6 = _substep_constants(dt, n_sub)
+    with torch.cuda.device(y.device):
+        err = getattr(lib, entry)(
+            y.data_ptr(), t0.data_ptr(), p_pack.data_ptr(), u_pack.data_ptr(),
+            out.data_ptr(), *dims, n_sub, h, hh, h6,
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"{what} kernel launch failed: {_build.error_string(err)}")
+    return out
+
+
 def rk4_window_batch_ref(y, t0, p_pack, u_pack, *, n_ph: int, n_sub: int,
                          dt: float):
     """Plain torch version of the window: the same hoisted arithmetic through
     `rhs_core` on [n_s, N] field-major tensors. y: [N, n_s]; t0: [N];
     p_pack: [29, N]; u_pack: [15, N]. Returns y1 [N, n_s]."""
-    _check(y, t0, p_pack, u_pack, n_ph)
+    _check_single(y, t0, p_pack, u_pack, n_ph)
     xp = like(y)
     p = unpack_struct(DERParams, p_pack, P_FIELDS, n_ph=n_ph)
     u = unpack_struct(Exog, u_pack, U_FIELDS)
@@ -125,31 +175,105 @@ def rk4_window_batch(y, t0, p_pack, u_pack, *, n_ph: int, n_sub: int,
     CUDA device the tensors must be float32, and the CUDA kernel runs on
     the current stream; each launch adds one to ``rk4_window_batch.launches``.
     """
-    _check(y, t0, p_pack, u_pack, n_ph)
+    _check_single(y, t0, p_pack, u_pack, n_ph)
     if y.device.type == "cpu":
         return rk4_window_batch_ref(y, t0, p_pack, u_pack, n_ph=n_ph,
                                     n_sub=n_sub, dt=dt)
-    if y.device.type != "cuda":
-        raise ValueError(f"unsupported device {y.device}")
-    if y.dtype != torch.float32:
-        raise ValueError(f"the CUDA window kernel takes float32, got {y.dtype}")
-    for name, a in (("y", y), ("t0", t0), ("p_pack", p_pack),
-                    ("u_pack", u_pack)):
-        if not a.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    from pvderx_torch.ops import _build
-    lib = _build.load()
-    out = torch.empty_like(y)
-    h, hh, h6 = _substep_constants(dt, n_sub)
-    with torch.cuda.device(y.device):
-        err = lib.pvderx_rk4_window(
-            y.data_ptr(), t0.data_ptr(), p_pack.data_ptr(), u_pack.data_ptr(),
-            out.data_ptr(), y.shape[0], n_ph, n_sub, h, hh, h6,
-            torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"window kernel launch failed: {_build.error_string(err)}")
+    out = _launch("pvderx_rk4_window", "window", y, t0, p_pack, u_pack,
+                  y.shape[0], n_ph, n_sub=n_sub, dt=dt)
     rk4_window_batch.launches += 1
     return out
 
 
 rk4_window_batch.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the fleet window: M DERs per env on a shared feeder
+# ---------------------------------------------------------------------------
+# The CUDA fleet kernel runs one env's units in one block (csrc/fleet_window.cu)
+MAX_UNITS_CUDA = 1024
+
+
+def fleet_window_bytes(n: int, m: int, n_ph: int) -> int:
+    """Device-memory bytes one fleet window must move: one f32 read of t0
+    per env and of (y, p_pack, u_pack) per unit, one f32 write of y1."""
+    n_s = 6 * n_ph + 5
+    return 4 * n * (1 + m * (2 * n_s + len(P_FIELDS) + len(U_FIELDS)))
+
+
+def fleet_window_ops(n: int, m: int, n_ph: int, n_sub: int) -> int:
+    """Arithmetic operations one fleet window of n envs performs, counted as
+    M single-DER windows (the reference's convention; it over-counts the
+    shared PCC voltage by ~1%)."""
+    return OPS_PER_SUBSTEP[n_ph] * m * n_sub * n
+
+
+def rk4_fleet_window_batch_ref(y, t0, p_pack, u_pack, *, n_ph: int, m: int,
+                               n_sub: int, dt: float):
+    """Plain torch version of the fleet window, on [n_s, N, M] field-major
+    tensors: per-unit `Prep`, the feeder's `Prep` and grid rotation from unit
+    0's fields, and in every RHS evaluation the M-mean of conn·i, the shared
+    `pcc_voltage`, then `rhs_given_v` per unit. y: [N, M, n_s]; t0: [N];
+    p_pack: [29, N, M]; u_pack: [15, N, M]. Returns y1 [N, M, n_s]."""
+    _check_fleet(y, t0, p_pack, u_pack, n_ph, m)
+    xp = like(y)
+    p = unpack_struct(DERParams, p_pack, P_FIELDS, n_ph=n_ph)
+    u = unpack_struct(Exog, u_pack, U_FIELDS)
+    p_sh, u_sh = fleet.shared(p), fleet.shared(u)
+    prep = rhs_core.prep_invariants(p, u, xp, bdims=2)
+    prep_sh = rhs_core.prep_invariants(p_sh, u_sh, xp, bdims=2)
+    h, hh, h6 = (torch.tensor(c, dtype=y.dtype, device=y.device)
+                 for c in _substep_constants(dt, n_sub))
+
+    def f(yy, t, rot):
+        i_inj = fleet.mean_injection(yy, u, n_ph, xp)
+        v = rhs_core.pcc_voltage(i_inj, t, p_sh, u_sh, xp, prep_sh, rot)
+        return rhs_core.rhs_given_v(yy, t, p, u, v, xp, prep)
+
+    t0 = t0[:, None]
+    yt = y.permute(2, 0, 1)
+    c = torch.zeros_like(yt)
+    r1 = rhs_core.grid_rot(t0, p_sh, u_sh, xp)
+    for k in range(n_sub):
+        t = t0 + k * h
+        rh = rhs_core.grid_rot(t + hh, p_sh, u_sh, xp)
+        r4 = rhs_core.grid_rot(t + h, p_sh, u_sh, xp)
+        k1 = f(yt, t, r1)
+        k2 = f(yt + hh * k1, t + hh, rh)
+        k3 = f(yt + hh * k2, t + hh, rh)
+        k4 = f(yt + h * k3, t + h, r4)
+        d = (h6 * (k1 + 2.0 * k2 + 2.0 * k3 + k4)) - c
+        s = yt + d
+        c = (s - yt) - d
+        yt, r1 = s, r4
+    return yt.permute(1, 2, 0).contiguous()
+
+
+def rk4_fleet_window_batch(y, t0, p_pack, u_pack, *, n_ph: int, m: int,
+                           n_sub: int, dt: float):
+    """Integrate N fleet envs (M units each) over one control window.
+
+    y: [N, M, n_s]; t0: [N]; p_pack: [29, N, M]; u_pack: [15, N, M], all
+    contiguous and on one device. Returns y1 [N, M, n_s]. Any N >= 1 and
+    M >= 1 (at most MAX_UNITS_CUDA on the card).
+
+    On the CPU this is `rk4_fleet_window_batch_ref` (float32 or float64). On
+    a CUDA device the tensors must be float32, and the CUDA kernel runs on
+    the current stream; each launch adds one to
+    ``rk4_fleet_window_batch.launches``.
+    """
+    _check_fleet(y, t0, p_pack, u_pack, n_ph, m)
+    if y.device.type == "cpu":
+        return rk4_fleet_window_batch_ref(y, t0, p_pack, u_pack, n_ph=n_ph,
+                                          m=m, n_sub=n_sub, dt=dt)
+    if y.device.type == "cuda" and m > MAX_UNITS_CUDA:
+        raise ValueError(f"the CUDA fleet kernel takes M <= {MAX_UNITS_CUDA} "
+                         f"units per env, got {m}")
+    out = _launch("pvderx_rk4_fleet_window", "fleet window", y, t0, p_pack,
+                  u_pack, y.shape[0], m, n_ph, n_sub=n_sub, dt=dt)
+    rk4_fleet_window_batch.launches += 1
+    return out
+
+
+rk4_fleet_window_batch.launches = 0

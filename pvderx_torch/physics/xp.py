@@ -8,7 +8,7 @@ directly:
   and device, so a float64 evaluation gets float64 angle tables (numpy's
   default) and a card evaluation gets its constants on the card;
 - ``maximum``/``minimum`` accept a Python float on either side (torch's own
-  reject it), and ``mean`` takes numpy's ``axis=``.
+  reject it), and ``mean`` takes numpy's ``axis=`` and ``keepdims=``.
 """
 from __future__ import annotations
 
@@ -39,8 +39,8 @@ class TorchXP:
     def cos(self, x):
         return torch.cos(self._t(x))
 
-    def mean(self, x, axis=0):
-        return torch.mean(x, dim=axis)
+    def mean(self, x, axis=0, keepdims=False):
+        return torch.mean(x, dim=axis, keepdim=keepdims)
 
     def maximum(self, a, b):
         return _minmax(a, b, torch.maximum, "min")
