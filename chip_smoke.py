@@ -6,7 +6,7 @@
 Phases, one line each (a failing phase raises, so the script exits non-zero):
 
 1. device   — the card's name and power limit (nvidia-smi).
-2. build    — nvcc builds both window kernels from pvderx_torch/ops/csrc/
+2. build    — nvcc builds the window kernels from pvderx_torch/ops/csrc/
               (one nvcc per source, in parallel) and reports each kernel's
               registers and spills.
 3. kernel   — the CUDA window kernel (K1) against its plain torch version on the
@@ -34,12 +34,26 @@ Phases, one line each (a failing phase raises, so the script exits non-zero):
               4096 envs x 16 units, aggregate mode, random actions): reset,
               warm-up, best of two 600-step chunks, the linearity check, K2
               launches == steps; then 60 per-unit steps ([N, 13+4M] obs).
+10. df_kernel — the CUDA df32 window kernel (K3) against its plain df32
+              version on the six cases of phase 3, each with a seeded
+              nonzero y_lo (~1e-9 relative), at n_sub=8 with dt=DT*8/64 (the
+              main path's h; the plain version is tens of thousands of tiny
+              torch kernels per RHS evaluation): max abs error on hi + lo
+              <= 1e-9, one launch each, every output |lo| <= ulp(hi)/2.
+11. df_gate — K3 on the gate scenario at presets 10 and 50, n_sub=64, lo
+              carried from 0, against the float64 LSODA truth: <= 1e-6.
+12. df_main — the df32 tier (`make_batch_fns_df`) at full width (preset 10,
+              f32, n_sub=64, 32768 envs, zero-action policy): reset,
+              warm-up, best of two 600-step chunks, the linearity check; K3
+              launches == steps, obs/reward finite, episodes done, y_lo
+              alive; K3 and K1 ms per launch at the same inputs.
 
 Then the kernel table as one JSON line, the card line, and the device line.
 Needs one CUDA card; imports torch, numpy, scipy and pvderx_torch only.
 """
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -50,6 +64,9 @@ import torch
 
 KERNEL_TOL = 5e-6        # kernel vs plain, one window, f32
 GATE_TOL = 4e-6          # f32 kernel vs float64 LSODA truth, gate scenario
+DF_TOL = 1e-9            # df32 kernel vs plain df32, one window, hi + lo
+DF_GATE_TOL = 1e-6       # df32 kernel vs float64 LSODA truth, gate scenario
+DF_CHECK_SUB = 8         # substeps of the df32 comparisons, at the main h
 N_ENVS = 32768
 FLEET_ENVS, FLEET_M = 4096, 16   # BASELINE config 5
 N_SUB = 64
@@ -156,6 +173,17 @@ def check_kernel(device, cases=KERNEL_CASES, n_sub=N_SUB):
     return worst
 
 
+@functools.cache
+def _gate_truth(preset: str, n_steps: int):
+    """(float64 LSODA trajectory of the gate scenario, seconds it took)."""
+    from pvderx_torch import make_params, oracle
+
+    t = time.perf_counter()
+    truth = oracle.run_trajectory(make_params(preset),
+                                  oracle.gate_scenario_exogs(n_steps))
+    return truth, time.perf_counter() - t
+
+
 def check_gate(device, n_steps=120, n=128, n_sub=N_SUB):
     """Phase 4: the f32 kernel vs the float64 LSODA truth on the gate
     scenario (preset 10)."""
@@ -164,9 +192,7 @@ def check_gate(device, n_steps=120, n=128, n_sub=N_SUB):
 
     p = make_params("10")
     exogs = oracle.gate_scenario_exogs(n_steps)
-    t = time.perf_counter()
-    truth = oracle.run_trajectory(p, exogs)
-    truth_s = time.perf_counter() - t
+    truth, truth_s = _gate_truth("10", n_steps)
     f = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32, device=device)
     pp = f([np.full(n, getattr(p, k)) for k in P_FIELDS])
     y = f(np.broadcast_to(truth[0], (n, p.n_states)))
@@ -186,10 +212,12 @@ def check_gate(device, n_steps=120, n=128, n_sub=N_SUB):
 
 def _zero_counts():
     """Set every kernel's launch count to 0 (just before a path is driven)."""
+    from pvderx_torch.ops.dualfloat import rk4_window_batch_df
     from pvderx_torch.ops.window import rk4_fleet_window_batch, rk4_window_batch
 
     rk4_window_batch.launches = 0
     rk4_fleet_window_batch.launches = 0
+    rk4_window_batch_df.launches = 0
 
 
 def _drive(roll, state, obs, warm, chunk):
@@ -489,6 +517,166 @@ def run_fleet_main(device, card, n_envs=FLEET_ENVS, m=FLEET_M, n_sub=N_SUB,
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes")
 
 
+def df_inputs(preset, n, seed, device, **kw):
+    """`window_inputs` with a seeded y_lo of ~1e-9 relative (well inside
+    ulp(y)/2, so (y, y_lo) is a normalized pair)."""
+    n_ph, y, t0, pp, uu = window_inputs(preset, n, seed, device, **kw)
+    rng = np.random.default_rng(1000 + seed)
+    lo = y.double().cpu().numpy() * 1e-9 * rng.standard_normal(tuple(y.shape))
+    y_lo = torch.tensor(lo, dtype=torch.float32, device=device)
+    return n_ph, y, y_lo, t0, pp, uu
+
+
+def _df_err(hi, lo, ref_hi, ref_lo) -> float:
+    return float(((hi.double() + lo.double())
+                  - (ref_hi.double() + ref_lo.double())).abs().max())
+
+
+def _lo_normalized(hi, lo) -> bool:
+    """|lo| <= ulp(hi)/2 everywhere."""
+    a = hi.abs()
+    ulp = torch.nextafter(a, torch.full_like(a, float("inf"))) - a
+    return bool((lo.abs() <= 0.5 * ulp).all())
+
+
+def check_df_kernel(device, cases=KERNEL_CASES, n_sub=DF_CHECK_SUB):
+    """Phase 10: the df32 kernel vs its plain version on every case, at
+    n_sub substeps of the main path's h. Returns the max error."""
+    from pvderx_torch.ops.dualfloat import (
+        rk4_window_batch_df, rk4_window_batch_df_ref)
+
+    cuda = torch.device(device).type == "cuda"
+    worst = 0.0
+    for i, (name, preset, n, kw) in enumerate(cases):
+        n_ph, *args = df_inputs(preset, n, i, device, **kw)
+        wkw = dict(n_ph=n_ph, n_sub=n_sub, dt=DT * n_sub / N_SUB)
+        before = rk4_window_batch_df.launches
+        hi, lo = rk4_window_batch_df(*args, **wkw)
+        moved = rk4_window_batch_df.launches - before
+        ref_hi, ref_lo = rk4_window_batch_df_ref(*args, **wkw)
+        _sync(device)
+        err = _df_err(hi, lo, ref_hi, ref_lo)
+        normal = _lo_normalized(hi, lo)
+        phase("df_kernel", case=name, n=n, n_ph=n_ph, n_sub=n_sub,
+              max_abs_err=err, tol=DF_TOL, launches=moved,
+              lo_normalized=normal, max_abs_lo=float(lo.abs().max()))
+        if not (np.isfinite(err) and err <= DF_TOL):
+            raise AssertionError(f"df32 kernel vs plain {name}: {err:.3e} > {DF_TOL}")
+        if not normal:
+            raise AssertionError(f"df32 kernel {name}: |lo| > ulp(hi)/2")
+        if cuda and moved != 1:
+            raise AssertionError(f"df32 launch counter moved by {moved}, not 1")
+        worst = max(worst, err)
+    return worst
+
+
+def check_df_gate(device, presets=("10", "50"), n_steps=120, n=128,
+                  n_sub=N_SUB):
+    """Phase 11: the df32 kernel vs the float64 LSODA truth on the gate
+    scenario, y_lo carried from 0 (y0 is an f32 input by contract)."""
+    from pvderx_torch import make_params, oracle
+    from pvderx_torch.ops.dualfloat import rk4_window_batch_df
+    from pvderx_torch.ops.window import P_FIELDS, U_FIELDS
+
+    f = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32, device=device)
+    errs = {}
+    for preset in presets:
+        p = make_params(preset)
+        truth, truth_s = _gate_truth(preset, n_steps)
+        pp = f([np.full(n, getattr(p, k)) for k in P_FIELDS])
+        y_hi = f(np.broadcast_to(truth[0], (n, p.n_states)))
+        y_lo = torch.zeros_like(y_hi)
+        err = 0.0
+        for k, u in enumerate(oracle.gate_scenario_exogs(n_steps)):
+            uu = f([np.full(n, getattr(u, name)) for name in U_FIELDS])
+            y_hi, y_lo = rk4_window_batch_df(y_hi, y_lo, f(np.full(n, k * DT)),
+                                             pp, uu, n_ph=p.n_ph, n_sub=n_sub,
+                                             dt=DT)
+            got = (y_hi.double() + y_lo.double()).cpu().numpy()
+            err = max(err, float(np.abs(got - truth[k + 1]).max()))
+        phase("df_gate", preset=preset, n_sub=n_sub, windows=n_steps,
+              max_abs_err=err, bound=DF_GATE_TOL, lsoda_truth_s=truth_s)
+        if not err <= DF_GATE_TOL:
+            raise AssertionError(
+                f"df32 gate preset {preset}: {err:.3e} > {DF_GATE_TOL}")
+        errs[preset] = err
+    return errs
+
+
+def run_df_main(device, card, n_envs=N_ENVS, n_sub=N_SUB, warm=WARM_STEPS,
+                chunk=CHUNK_STEPS, plain_sub=DF_CHECK_SUB):
+    """Phase 12: the df32 tier at full width through the df32 kernel."""
+    from pvderx_torch.env import core, make_batch_fns_df, make_env_config
+    from pvderx_torch.env import rollout_df
+    from pvderx_torch.ops.dualfloat import (
+        rk4_window_batch_df, rk4_window_batch_df_ref, window_df_bytes,
+        window_df_ops)
+    from pvderx_torch.ops.window import (
+        P_FIELDS, U_FIELDS, pack_struct, rk4_window_batch)
+
+    cuda = torch.device(device).type == "cuda"
+    cfg = make_env_config("10", dtype=torch.float32, n_sub=n_sub,
+                          device=device)
+    reset_df, _ = make_batch_fns_df(cfg)
+    gen = torch.Generator(device=device).manual_seed(0)
+    policy = lambda obs, g: torch.zeros(obs.shape[0], dtype=torch.int64,
+                                        device=obs.device)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+
+    _zero_counts()
+    t = time.perf_counter()
+    carry, obs = reset_df(n_envs, gen)
+    init_res_max = float(carry[0].init_res.max())
+    reset_s = time.perf_counter() - t
+    carry, obs, out = _drive(
+        lambda c, o, k: rollout_df(cfg, c, o, policy, k, gen), carry, obs,
+        warm, chunk)
+    launches = rk4_window_batch_df.launches
+    peak_mib = (torch.cuda.max_memory_allocated(device) / 2 ** 20
+                if cuda else None)
+    state, y_lo = carry
+    lo_max = float(y_lo.abs().max())
+
+    # K3 (and K1 on hi) alone at the main path's shapes, and the plain
+    # version at plain_sub substeps of the same h
+    t_win, exog, _, _ = core._pre_window(
+        cfg, state, torch.zeros(n_envs, dtype=torch.int64, device=device))
+    pk, uk = pack_struct(state.der, P_FIELDS), pack_struct(exog, U_FIELDS)
+    kw = dict(n_ph=cfg.der.n_ph, n_sub=n_sub, dt=cfg.dt_ctrl)
+    kernel_ms = k1_ms = plain_ms = None
+    if cuda:
+        kernel_ms = _time_ms(
+            lambda: rk4_window_batch_df(state.y, y_lo, t_win, pk, uk, **kw),
+            10, device)
+        k1_ms = _time_ms(lambda: rk4_window_batch(state.y, t_win, pk, uk, **kw),
+                         20, device)
+        plain_ms = _time_ms(lambda: rk4_window_batch_df_ref(
+            state.y, y_lo, t_win, pk, uk, n_ph=cfg.der.n_ph, n_sub=plain_sub,
+            dt=cfg.dt_ctrl * plain_sub / n_sub), 1, device)
+    bytes_ms = 1e3 * window_df_bytes(n_envs, 1) / PEAK_BYTES_PER_S
+    ops_ms = 1e3 * window_df_ops(n_envs, 1, n_sub) / PEAK_F32_PER_S
+    step_ms = 1e3 * out["chunk_s"] / chunk
+    phase("df_main", card=card, n_envs=n_envs, n_sub=n_sub, reset_s=reset_s,
+          init_res_max=init_res_max, timed_steps=chunk,
+          env_steps_per_s=n_envs * chunk / out["chunk_s"], step_ms=step_ms,
+          kernel_ms_per_launch=kernel_ms, k1_ms_per_launch=k1_ms,
+          k3_over_k1=(kernel_ms / k1_ms if kernel_ms else None),
+          kernel_share_of_step=(kernel_ms / step_ms if kernel_ms else None),
+          bound_ms=max(bytes_ms, ops_ms), plain_window_ms=plain_ms,
+          plain_n_sub=plain_sub, peak_mem_mib=peak_mib, launches=launches,
+          steps=out["steps"], dones=out["dones"], rew_sum=out["rew_sum"],
+          finite=out["finite"], max_abs_y_lo=lo_max)
+    phase("df_linear", card=card, two_chunks_over_one=out["ratio"],
+          band=[1.5, 2.7])
+    _check_drive("df_main", out, launches, cuda)
+    if not lo_max > 0.0:
+        raise AssertionError("df_main: y_lo is zero everywhere")
+    return dict(launches=launches, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+
+
 def ptxas_summary(report: str) -> dict:
     """Registers and spill bytes per kernel from `nvcc -Xptxas -v` output."""
     import re
@@ -499,7 +687,8 @@ def ptxas_summary(report: str) -> dict:
                         r"(?: for|$)", ln)
         if hit:
             name = hit.group(1)
-            k = re.search(r"((?:fleet_)?window_kernel)I((?:Li\d+E)+)E", name)
+            k = re.search(r"((?:fleet_)?window(?:_df)?_kernel)I((?:Li\d+E)+)E",
+                          name)
             if k:
                 args = re.findall(r"Li(\d+)E", k.group(2))
                 name = f"{k.group(1)}<{','.join(args)}>"
@@ -545,6 +734,9 @@ def main() -> int:
     fleet_err = check_fleet_kernel(device)
     check_fleet_gate(device)
     fleet_out = run_fleet_main(device, card)
+    df_err = check_df_kernel(device)
+    check_df_gate(device)
+    df_out = run_df_main(device, card)
 
     n_bytes = window_bytes(N_ENVS, 1)
     n_ops = window_ops(N_ENVS, 1, N_SUB)
@@ -577,6 +769,18 @@ def main() -> int:
         "plain_ms": fleet_out["plain_ms"],
         "bound_ms": fleet_out["bound_ms"],
         "bound_by": fleet_out["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "rk4_window_df",
+        "route": "cuda",
+        "source": "pvderx_torch/ops/csrc/window_df.cu",
+        "replaces": "pvderx/ops/dualfloat.py:385",
+        "launches": df_out["launches"],
+        "max_abs_err": df_err,
+        "ms": df_out["kernel_ms"],
+        "plain_ms": df_out["plain_ms"],
+        "bound_ms": df_out["bound_ms"],
+        "bound_by": df_out["bound_by"],
         "library_ms": None,
     }]}), flush=True)
     print(card, flush=True)

@@ -3,11 +3,13 @@
 
     python3 profile_torch_step.py            # the single-DER main path
     python3 profile_torch_step.py --fleet    # the fleet (BASELINE config 5)
+    python3 profile_torch_step.py --df       # the df32 tier (make_batch_fns_df)
 
 Runs the main path (preset 10, f32, n_sub=64, 32768 envs, zero-action policy,
-autoreset), or with ``--fleet`` the fleet path (preset 10, f32, n_sub=64,
-4096 envs x 16 units, aggregate mode, zero-action policy), under
-`torch.profiler` for 20 steps after 10 warm-up steps, and prints one JSON
+autoreset), with ``--fleet`` the fleet path (preset 10, f32, n_sub=64,
+4096 envs x 16 units, aggregate mode, zero-action policy), or with ``--df``
+the main path's config through the df32 tier (state carried as (hi, lo)),
+under `torch.profiler` for 20 steps after 10 warm-up steps, and prints one JSON
 line: wall ms per step, device-busy ms per step (sum of
 kernel times; one stream, so kernels do not overlap), the device's idle
 share, kernel launches per step, and the kernels that take the most device
@@ -34,19 +36,25 @@ def main() -> int:
         print("profile_torch_step: no CUDA device is available", file=sys.stderr)
         return 1
     from pvderx_torch.env import (
-        fleet_rollout, make_batch_fns, make_env_config, make_fleet_batch_fns,
-        make_fleet_config, rollout)
+        fleet_rollout, make_batch_fns, make_batch_fns_df, make_env_config,
+        make_fleet_batch_fns, make_fleet_config, rollout, rollout_df)
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
-    is_fleet = "--fleet" in sys.argv[1:]
+    path = ("fleet" if "--fleet" in sys.argv[1:]
+            else "df" if "--df" in sys.argv[1:] else "single")
     kw = dict(dtype=torch.float32, n_sub=N_SUB, device="cuda")
-    if is_fleet:
+    if path == "fleet":
         n_envs, shape = FLEET_ENVS, {"n_envs": FLEET_ENVS, "m": FLEET_M}
         cfg = make_fleet_config("10", m=FLEET_M, **kw)
         reset_batch, _ = make_fleet_batch_fns(cfg)
         roll = fleet_rollout
+    elif path == "df":
+        n_envs, shape = N_ENVS, {"n_envs": N_ENVS}
+        cfg = make_env_config("10", **kw)
+        reset_batch, _ = make_batch_fns_df(cfg)
+        roll = rollout_df
     else:
         n_envs, shape = N_ENVS, {"n_envs": N_ENVS}
         cfg = make_env_config("10", **kw)
@@ -77,7 +85,7 @@ def main() -> int:
     wall_ms = 1e3 * wall_s / STEPS
     busy_ms = 1e-3 * busy_us / STEPS
     print(json.dumps({
-        "card": card, "path": "fleet" if is_fleet else "single", **shape,
+        "card": card, "path": path, **shape,
         "n_sub": N_SUB,
         "steps": STEPS, "wall_ms_per_step": wall_ms,
         "device_busy_ms_per_step": busy_ms,

@@ -23,6 +23,21 @@ BUILD_DIR = Path(__file__).parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+_PTR, _INT, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# (argtypes, restype) of every extern "C" entry of csrc/*.cu
+ENTRIES = {
+    # (y, t0, p, u, out, n, n_ph, n_sub, h, h/2, h/6, stream)
+    "pvderx_rk4_window": ([_PTR] * 5 + [_INT] * 3 + [_F32] * 3 + [_PTR], _INT),
+    # (y, t0, p, u, out, n, m, n_ph, n_sub, h, h/2, h/6, stream)
+    "pvderx_rk4_fleet_window": (
+        [_PTR] * 5 + [_INT] * 4 + [_F32] * 3 + [_PTR], _INT),
+    # (y_hi, y_lo, t0, p, u, out_hi, out_lo, n, n_ph, n_sub, h_hi, h_lo,
+    #  stream)
+    "pvderx_rk4_window_df": (
+        [_PTR] * 7 + [_INT] * 3 + [_F32] * 2 + [_PTR], _INT),
+    "pvderx_error_string": ([_INT], ctypes.c_char_p),
+}
+
 _lock = threading.Lock()
 _lib: list[ctypes.CDLL] = []   # the library once loaded in this process
 
@@ -93,16 +108,9 @@ def load() -> ctypes.CDLL:
     with _lock:
         if not _lib:
             lib = ctypes.CDLL(str(build()))
-            ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            # (y, t0, p, u, out, n, [m,] n_ph, n_sub, h, h/2, h/6, stream)
-            lib.pvderx_rk4_window.argtypes = (
-                [ptr] * 5 + [i] * 3 + [f] * 3 + [ptr])
-            lib.pvderx_rk4_fleet_window.argtypes = (
-                [ptr] * 5 + [i] * 4 + [f] * 3 + [ptr])
-            for fn in (lib.pvderx_rk4_window, lib.pvderx_rk4_fleet_window):
-                fn.restype = ctypes.c_int
-            lib.pvderx_error_string.argtypes = [ctypes.c_int]
-            lib.pvderx_error_string.restype = ctypes.c_char_p
+            for name, (args, res) in ENTRIES.items():
+                fn = getattr(lib, name)
+                fn.argtypes, fn.restype = args, res
             _lib.append(lib)
         return _lib[0]
 

@@ -93,9 +93,9 @@ fleet_window_kernel(const float* __restrict__ y_in,
   auto P0 = [&](int f) { return p[f * nm + cell0]; };
   auto U0 = [&](int f) { return u[f * nm + cell0]; };
 
-  Unit<N> wu;
+  Unit<float, N> wu;
   load_unit(wu, P, U);
-  Feeder<N> fd;
+  Feeder<float, N> fd;
   load_feeder(fd, wu.ak_re, wu.ak_im, P0, U0);
   const float share = valid ? wu.conn : 0.0f;   // padded lanes add 0
   const float mf = static_cast<float>(m);
@@ -118,9 +118,9 @@ fleet_window_kernel(const float* __restrict__ y_in,
       ii_re[k] = s[k] / mf;
       ii_im[k] = s[N + k] / mf;
     }
-    pcc_voltage<N>(ii_re, ii_im, rot_re, rot_im, fd, wu.ak_re, wu.ak_im,
-                   v_re, v_im);
-    rhs_given_v<N>(ys, v_re, v_im, wu, dy);
+    pcc_voltage<float, N>(ii_re, ii_im, rot_re, rot_im, fd, wu.ak_re,
+                          wu.ak_im, v_re, v_im);
+    rhs_given_v<float, N>(ys, v_re, v_im, wu, dy);
   };
 
   float y[NS];

@@ -1,7 +1,12 @@
 // The PV-DER right-hand side on one thread, shared by the window kernels.
 //
 // A device restatement of pvderx_torch/physics/rhs_core.py's hoisted path,
-// split as rhs_core splits it:
+// written once over the scalar type T: float for the float32 kernels
+// (window.cu, fleet_window.cu), df (df.cuh, double-float32) for the df32
+// kernel (window_df.cu) -- one set of equations, as rhs_core runs on one
+// namespace per precision. Literals go through lit<T>(double); the
+// transcendentals (sqrt_t, exp_t, sincos_t, pow_sat, max_t, min_t) are
+// overloaded per type. Split as rhs_core splits it:
 //   - pcc_voltage: the PCC voltage from the feeder (grid Thevenin source and
 //     local load, `Feeder`) and the injected current;
 //   - rhs_given_v: algebra_given_v + rhs_from_algebra of one DER (`Unit`)
@@ -11,13 +16,16 @@
 // mean injection of the units on the feeder, then rhs_given_v per unit.
 //
 // Arithmetic follows rhs_core operation by operation, in the same order.
-// nvcc contracts a*b+c into FMAs, so results are not bitwise equal to the
-// plain torch version; the Kahan steps contain no products, so contraction
-// cannot break them. No fast-math: full-range sinf/cosf/expf/powf are
+// In float, nvcc contracts a*b+c into FMAs, so results are not bitwise equal
+// to the plain torch version; the Kahan steps contain no products, so
+// contraction cannot break them (df arithmetic uses rounded intrinsics and
+// is never contracted). No fast-math: full-range sinf/cosf/expf/powf are
 // required (the grid angle reaches ~100 rad in an episode).
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include "df.cuh"
 
 namespace pvderx {
 
@@ -33,100 +41,111 @@ enum UField {
   VDC_REF, Q_REF, CONN, CES, P_REF, N_UFIELDS
 };
 
-constexpr float TWO_PI_3 = static_cast<float>(2.0943951023931953);
-constexpr float SAT_EXP = -1.0f / 16.0f;   // -1/SAT_K
-constexpr float AW_KAPPA = 40.0f;
-constexpr float VDC_PIN_RATE = 1000.0f;
-constexpr float T_REF = 298.15f;
+constexpr double TWO_PI_3 = 2.0943951023931953;   // rhs_core.TWO_PI_3
+constexpr float SAT_EXP = -1.0f / 16.0f;          // -1/SAT_K
+constexpr double AW_KAPPA = 40.0;
+constexpr double VDC_PIN_RATE = 1000.0;
+constexpr double T_REF = 298.15;
+
+// The float32 transcendentals; df's are in df.cuh.
+__device__ __forceinline__ float sqrt_t(float x) { return sqrtf(x); }
+__device__ __forceinline__ float exp_t(float x) { return expf(x); }
+__device__ __forceinline__ void sincos_t(float x, float* s, float* c) {
+  sincosf(x, s, c);
+}
+__device__ __forceinline__ float pow_sat(float x) { return powf(x, SAT_EXP); }
+__device__ __forceinline__ float max_t(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ float min_t(float a, float b) { return fminf(a, b); }
 
 // Window invariants of a feeder: grid source, grid/load admittance and the
 // negative-sequence source phasor (rhs_core.Prep's y_g, inv_y_tot, v2).
-template <int N>
+template <class T, int N>
 struct Feeder {
-  float v_g, phi_g, wdw, t_g;
-  float yg_re, yg_im, iyt_re, iyt_im;
-  float v2_re[N], v2_im[N];
+  T v_g, phi_g, wdw, t_g;
+  T yg_re, yg_im, iyt_re, iyt_im;
+  T v2_re[N], v2_im[N];
 };
 
 // Window invariants of one DER: its params, its exog and its part of Prep.
-template <int N>
+template <class T, int N>
 struct Unit {
   // params and products of params that every RHS evaluation uses
-  float rf, wb, wb_lf, kv, vdc_floor, vdc_base, np_par, irs, tau_dc;
-  float w_f, kp_gcc, kp_dc, ki_dc, kp_q, ki_q, kp_pll, ki_pll;
-  float c, one_m_c, c_pin;
+  T rf, wb, wb_lf, kv, vdc_floor, vdc_base, np_par, irs, tau_dc;
+  T w_f, kp_gcc, kp_dc, ki_dc, kp_q, ki_q, kp_pll, ki_pll;
+  T c, one_m_c, c_pin;
   // exog
-  float vdc_ref, q_ref, conn, p_ref, dis;
+  T vdc_ref, q_ref, conn, p_ref, dis;
   // Prep (rhs_core.prep_invariants)
-  float en, ki_gcc_en, iph, inv_m_max, inv_i_max, g_over_t, inv_s;
-  float ak_re[N], ak_im[N];   // phase rotators (3-phase only)
+  T en, ki_gcc_en, iph, inv_m_max, inv_i_max, g_over_t, inv_s;
+  T ak_re[N], ak_im[N];   // phase rotators (3-phase only)
 };
 
-// P(field) / U(field) read one DER's params / exog.
-template <int N, class PF, class UF>
-__device__ __forceinline__ void load_unit(Unit<N>& w, PF P, UF U) {
-  w.rf = P(RF);
-  w.wb = P(W_BASE);
-  w.wb_lf = w.wb / P(LF);
-  w.kv = P(KV);
-  w.vdc_floor = P(VDC_FLOOR);
-  w.vdc_base = P(VDC_BASE);
-  w.np_par = P(NP_PAR);
-  w.irs = P(IRS);
-  w.tau_dc = P(TAU_DC);
-  w.w_f = P(W_F);
-  w.kp_gcc = P(KP_GCC);
-  w.kp_dc = P(KP_DC);
-  w.ki_dc = P(KI_DC);
-  w.kp_q = P(KP_Q);
-  w.ki_q = P(KI_Q);
-  w.kp_pll = P(KP_PLL);
-  w.ki_pll = P(KI_PLL);
-  w.c = P(CONST_VDC);
-  w.one_m_c = 1.0f - w.c;
-  w.c_pin = w.c * VDC_PIN_RATE;
+// P(field) / U(field) read one DER's params / exog (float32, exact in T).
+template <class T, int N, class PF, class UF>
+__device__ __forceinline__ void load_unit(Unit<T, N>& w, PF P, UF U) {
+  w.rf = T(P(RF));
+  w.wb = T(P(W_BASE));
+  w.wb_lf = w.wb / T(P(LF));
+  w.kv = T(P(KV));
+  w.vdc_floor = T(P(VDC_FLOOR));
+  w.vdc_base = T(P(VDC_BASE));
+  w.np_par = T(P(NP_PAR));
+  w.irs = T(P(IRS));
+  w.tau_dc = T(P(TAU_DC));
+  w.w_f = T(P(W_F));
+  w.kp_gcc = T(P(KP_GCC));
+  w.kp_dc = T(P(KP_DC));
+  w.ki_dc = T(P(KI_DC));
+  w.kp_q = T(P(KP_Q));
+  w.ki_q = T(P(KI_Q));
+  w.kp_pll = T(P(KP_PLL));
+  w.ki_pll = T(P(KI_PLL));
+  w.c = T(P(CONST_VDC));
+  w.one_m_c = lit<T>(1.0) - w.c;
+  w.c_pin = w.c * lit<T>(VDC_PIN_RATE);
 
-  w.vdc_ref = U(VDC_REF);
-  w.q_ref = U(Q_REF);
-  w.conn = U(CONN);
-  w.p_ref = U(P_REF);
-  w.dis = -(1.0f - w.conn) * w.wb;
+  w.vdc_ref = T(U(VDC_REF));
+  w.q_ref = T(U(Q_REF));
+  w.conn = T(U(CONN));
+  w.p_ref = T(U(P_REF));
+  w.dis = -(lit<T>(1.0) - w.conn) * w.wb;
 
-  w.en = w.conn * (1.0f - U(CES));
-  w.ki_gcc_en = P(KI_GCC) * w.en;
-  const float t_cell = U(T_CELL);
-  w.iph = (P(ISC_REF) + P(KI_T) * (t_cell - T_REF)) * (U(S_IRR) / 1000.0f);
-  w.inv_m_max = 1.0f / P(M_MAX);
-  w.inv_i_max = 1.0f / P(I_MAX);
-  w.g_over_t = P(GAMMA) / t_cell;
-  w.inv_s = 1.0f / P(S_RATED);
+  w.en = w.conn * (lit<T>(1.0) - T(U(CES)));
+  w.ki_gcc_en = T(P(KI_GCC)) * w.en;
+  const T t_cell = T(U(T_CELL));
+  w.iph = (T(P(ISC_REF)) + T(P(KI_T)) * (t_cell - lit<T>(T_REF)))
+          * (T(U(S_IRR)) / lit<T>(1000.0));
+  w.inv_m_max = lit<T>(1.0) / T(P(M_MAX));
+  w.inv_i_max = lit<T>(1.0) / T(P(I_MAX));
+  w.g_over_t = T(P(GAMMA)) / t_cell;
+  w.inv_s = lit<T>(1.0) / T(P(S_RATED));
   if (N == 3) {
-    const float ang[3] = {0.0f, -TWO_PI_3, TWO_PI_3};
+    const T ang[3] = {lit<T>(0.0), -lit<T>(TWO_PI_3), lit<T>(TWO_PI_3)};
 #pragma unroll
-    for (int k = 0; k < N; ++k) sincosf(ang[k], &w.ak_im[k], &w.ak_re[k]);
+    for (int k = 0; k < N; ++k) sincos_t(ang[k], &w.ak_im[k], &w.ak_re[k]);
   }
 }
 
 // P(field) / U(field) read the params / exog that carry the feeder's fields.
-template <int N, class PF, class UF>
-__device__ __forceinline__ void load_feeder(Feeder<N>& f, const float (&ak_re)[N],
-                                            const float (&ak_im)[N], PF P, UF U) {
-  f.v_g = U(V_G);
-  f.phi_g = U(PHI_G);
-  f.wdw = P(W_BASE) * U(DW_G);
-  f.t_g = U(T_G);
-  const float rg = P(RG), xg = P(XG);
-  const float dg = rg * rg + xg * xg;
+template <class T, int N, class PF, class UF>
+__device__ __forceinline__ void load_feeder(Feeder<T, N>& f, const T (&ak_re)[N],
+                                            const T (&ak_im)[N], PF P, UF U) {
+  f.v_g = T(U(V_G));
+  f.phi_g = T(U(PHI_G));
+  f.wdw = T(P(W_BASE)) * T(U(DW_G));
+  f.t_g = T(U(T_G));
+  const T rg = T(P(RG)), xg = T(P(XG));
+  const T dg = rg * rg + xg * xg;
   f.yg_re = rg / dg;
   f.yg_im = -xg / dg;
-  const float yt_re = f.yg_re + U(G_LOAD), yt_im = f.yg_im + U(B_LOAD);
-  const float dt_ = yt_re * yt_re + yt_im * yt_im;
+  const T yt_re = f.yg_re + T(U(G_LOAD)), yt_im = f.yg_im + T(U(B_LOAD));
+  const T dt_ = yt_re * yt_re + yt_im * yt_im;
   f.iyt_re = yt_re / dt_;
   f.iyt_im = -yt_im / dt_;
   if (N == 3) {
-    float e2_im, e2_re;
-    sincosf(U(PHI_G2), &e2_im, &e2_re);
-    const float v_g2 = U(V_G2);
+    T e2_im, e2_re;
+    sincos_t(T(U(PHI_G2)), &e2_im, &e2_re);
+    const T v_g2 = T(U(V_G2));
 #pragma unroll
     for (int k = 0; k < N; ++k) {
       f.v2_re[k] = (e2_re * ak_re[k] - e2_im * (-ak_im[k])) * v_g2;
@@ -136,52 +155,54 @@ __device__ __forceinline__ void load_feeder(Feeder<N>& f, const float (&ak_re)[N
 }
 
 // rhs_core.soft_limit_scale with the hoisted reciprocal: r^16 by squaring
-__device__ __forceinline__ float soft_limit_scale(float mag, float inv_lim) {
-  float r = fminf(mag * inv_lim, 8.0f);
-  float r2 = r * r;
-  float r4 = r2 * r2;
-  float r8 = r4 * r4;
-  return powf(1.0f + r8 * r8, SAT_EXP);
+template <class T>
+__device__ __forceinline__ T soft_limit_scale(T mag, T inv_lim) {
+  T r = min_t(mag * inv_lim, lit<T>(8.0));
+  T r2 = r * r;
+  T r4 = r2 * r2;
+  T r8 = r4 * r4;
+  return pow_sat(lit<T>(1.0) + r8 * r8);
 }
 
 // rhs_core.aw_gate with the hoisted reciprocal
-__device__ __forceinline__ float aw_gate(float mag, float inv_lim) {
-  float r = mag * inv_lim;
-  float z = AW_KAPPA * (1.0f - r);
-  return 1.0f / (1.0f + expf(-fminf(z, 40.0f)));
+template <class T>
+__device__ __forceinline__ T aw_gate(T mag, T inv_lim) {
+  T r = mag * inv_lim;
+  T z = lit<T>(AW_KAPPA) * (lit<T>(1.0) - r);
+  return lit<T>(1.0) / (lit<T>(1.0) + exp_t(-min_t(z, lit<T>(40.0))));
 }
 
 // rhs_core.grid_rot: e^{j(phi_g + w_base*dw_g*(t - t_g))}
-template <int N>
-__device__ __forceinline__ void grid_rot(float t, const Feeder<N>& f,
-                                         float& re, float& im) {
-  float phi = f.phi_g + f.wdw * (t - f.t_g);
-  sincosf(phi, &im, &re);
+template <class T, int N>
+__device__ __forceinline__ void grid_rot(T t, const Feeder<T, N>& f, T& re,
+                                         T& im) {
+  T phi = f.phi_g + f.wdw * (t - f.t_g);
+  sincos_t(phi, &im, &re);
 }
 
 // rhs_core.pcc_voltage(i_inj, ...) with the grid phasor `rot` given
-template <int N>
+template <class T, int N>
 __device__ __forceinline__ void pcc_voltage(
-    const float (&ii_re)[N], const float (&ii_im)[N], float rot_re,
-    float rot_im, const Feeder<N>& f, const float (&ak_re)[N],
-    const float (&ak_im)[N], float (&v_re)[N], float (&v_im)[N]) {
-  const float vgp_re = rot_re * f.v_g, vgp_im = rot_im * f.v_g;
+    const T (&ii_re)[N], const T (&ii_im)[N], T rot_re, T rot_im,
+    const Feeder<T, N>& f, const T (&ak_re)[N], const T (&ak_im)[N],
+    T (&v_re)[N], T (&v_im)[N]) {
+  const T vgp_re = rot_re * f.v_g, vgp_im = rot_im * f.v_g;
 #pragma unroll
   for (int k = 0; k < N; ++k) {
-    float vg_re, vg_im;
+    T vg_re, vg_im;
     if (N == 1) {
       vg_re = vgp_re;
       vg_im = vgp_im;
     } else {
-      float a_re = vgp_re * ak_re[k] - vgp_im * ak_im[k];
-      float a_im = vgp_re * ak_im[k] + vgp_im * ak_re[k];
-      float b_re = rot_re * f.v2_re[k] - rot_im * f.v2_im[k];
-      float b_im = rot_re * f.v2_im[k] + rot_im * f.v2_re[k];
+      T a_re = vgp_re * ak_re[k] - vgp_im * ak_im[k];
+      T a_im = vgp_re * ak_im[k] + vgp_im * ak_re[k];
+      T b_re = rot_re * f.v2_re[k] - rot_im * f.v2_im[k];
+      T b_im = rot_re * f.v2_im[k] + rot_im * f.v2_re[k];
       vg_re = a_re + b_re;
       vg_im = a_im + b_im;
     }
-    float s_re = (vg_re * f.yg_re - vg_im * f.yg_im) + ii_re[k];
-    float s_im = (vg_re * f.yg_im + vg_im * f.yg_re) + ii_im[k];
+    T s_re = (vg_re * f.yg_re - vg_im * f.yg_im) + ii_re[k];
+    T s_im = (vg_re * f.yg_im + vg_im * f.yg_re) + ii_im[k];
     v_re[k] = s_re * f.iyt_re - s_im * f.iyt_im;
     v_im[k] = s_re * f.iyt_im + s_im * f.iyt_re;
   }
@@ -189,95 +210,95 @@ __device__ __forceinline__ void pcc_voltage(
 
 // rhs_core.rhs_given_v: algebra_given_v and rhs_from_algebra of one DER at
 // the PCC voltage v.
-template <int N>
-__device__ __forceinline__ void rhs_given_v(const float (&y)[6 * N + 5],
-                                            const float (&v_re)[N],
-                                            const float (&v_im)[N],
-                                            const Unit<N>& w,
-                                            float (&dy)[6 * N + 5]) {
-  const float vdc = y[6 * N + 0];
-  const float xdc = y[6 * N + 1];
-  const float xq = y[6 * N + 2];
-  const float xpll = y[6 * N + 3];
-  const float theta = y[6 * N + 4];
+template <class T, int N>
+__device__ __forceinline__ void rhs_given_v(const T (&y)[6 * N + 5],
+                                            const T (&v_re)[N],
+                                            const T (&v_im)[N],
+                                            const Unit<T, N>& w,
+                                            T (&dy)[6 * N + 5]) {
+  const T vdc = y[6 * N + 0];
+  const T xdc = y[6 * N + 1];
+  const T xq = y[6 * N + 2];
+  const T xpll = y[6 * N + 3];
+  const T theta = y[6 * N + 4];
 
-  float ii_re[N], ii_im[N];
+  T ii_re[N], ii_im[N];
 #pragma unroll
   for (int k = 0; k < N; ++k) {
     ii_re[k] = y[k] * w.conn;
     ii_im[k] = y[N + k] * w.conn;
   }
 
-  float vpos_re, vpos_im;
+  T vpos_re, vpos_im;
   if (N == 1) {
     vpos_re = v_re[0];
     vpos_im = v_im[0];
   } else {
-    float sr = 0.0f, si = 0.0f;
+    T sr = lit<T>(0.0), si = lit<T>(0.0);
 #pragma unroll
     for (int k = 0; k < N; ++k) {
-      sr += v_re[k] * w.ak_re[k] - v_im[k] * (-w.ak_im[k]);
-      si += v_re[k] * (-w.ak_im[k]) + v_im[k] * w.ak_re[k];
+      sr = sr + (v_re[k] * w.ak_re[k] - v_im[k] * (-w.ak_im[k]));
+      si = si + (v_re[k] * (-w.ak_im[k]) + v_im[k] * w.ak_re[k]);
     }
-    vpos_re = sr / N;
-    vpos_im = si / N;
+    vpos_re = sr / lit<T>(N);
+    vpos_im = si / lit<T>(N);
   }
 
-  const float vdc_pos = fmaxf(vdc, w.vdc_floor);
-  const float kvv = w.kv * vdc_pos;
-  float vt_re[N], vt_im[N];
+  const T vdc_pos = max_t(vdc, w.vdc_floor);
+  const T kvv = w.kv * vdc_pos;
+  T vt_re[N], vt_im[N];
 #pragma unroll
   for (int k = 0; k < N; ++k) {
-    float mr = y[4 * N + k] * w.kp_gcc + y[2 * N + k];
-    float mi = y[5 * N + k] * w.kp_gcc + y[3 * N + k];
-    float m_mag = sqrtf(mr * mr + mi * mi + 1e-30f);
-    float s = soft_limit_scale(m_mag, w.inv_m_max);
+    T mr = y[4 * N + k] * w.kp_gcc + y[2 * N + k];
+    T mi = y[5 * N + k] * w.kp_gcc + y[3 * N + k];
+    T m_mag = sqrt_t(mr * mr + mi * mi + lit<T>(1e-30));
+    T s = soft_limit_scale(m_mag, w.inv_m_max);
     vt_re[k] = (mr * s) * kvv;
     vt_im[k] = (mi * s) * kvv;
   }
 
-  float sth, cth;
-  sincosf(theta, &sth, &cth);
-  const float v_q = vpos_re * (-sth) + vpos_im * cth;
+  T sth, cth;
+  sincos_t(theta, &sth, &cth);
+  const T v_q = vpos_re * (-sth) + vpos_im * cth;
 
-  float p_inv = 0.0f, p_pcc = 0.0f, q_pcc = 0.0f;
+  T p_inv = lit<T>(0.0), p_pcc = lit<T>(0.0), q_pcc = lit<T>(0.0);
 #pragma unroll
   for (int k = 0; k < N; ++k) {
-    p_inv += vt_re[k] * y[k] - vt_im[k] * (-y[N + k]);
-    p_pcc += v_re[k] * ii_re[k] - v_im[k] * (-ii_im[k]);
-    q_pcc += v_re[k] * (-ii_im[k]) + v_im[k] * ii_re[k];
+    p_inv = p_inv + (vt_re[k] * y[k] - vt_im[k] * (-y[N + k]));
+    p_pcc = p_pcc + (v_re[k] * ii_re[k] - v_im[k] * (-ii_im[k]));
+    q_pcc = q_pcc + (v_re[k] * (-ii_im[k]) + v_im[k] * ii_re[k]);
   }
   if (N != 1) {
-    p_inv /= N;
-    p_pcc /= N;
-    q_pcc /= N;
+    p_inv = p_inv / lit<T>(N);
+    p_pcc = p_pcc / lit<T>(N);
+    q_pcc = q_pcc / lit<T>(N);
   }
 
   // pv_power with the hoisted iph, gamma/T and 1/S
-  const float vdc_v = vdc * w.vdc_base;
-  const float ex = w.g_over_t * vdc_v;
-  float i_arr = w.np_par * (w.iph - w.irs * (expf(ex) - 1.0f));
-  i_arr = fmaxf(i_arr, 0.0f);
-  const float p_pv = (i_arr * vdc_v) * w.inv_s;
+  const T vdc_v = vdc * w.vdc_base;
+  const T ex = w.g_over_t * vdc_v;
+  T i_arr = w.np_par * (w.iph - w.irs * (exp_t(ex) - lit<T>(1.0)));
+  i_arr = max_t(i_arr, lit<T>(0.0));
+  const T p_pv = (i_arr * vdc_v) * w.inv_s;
 
-  const float e_dc = w.one_m_c * (vdc - w.vdc_ref) + w.c * (w.p_ref - p_pcc);
-  const float id_raw = w.kp_dc * e_dc + xdc;
-  const float e_q = w.q_ref - q_pcc;
-  const float iq_raw = -(w.kp_q * e_q + xq);
-  const float mag = sqrtf(id_raw * id_raw + iq_raw * iq_raw + 1e-30f);
-  const float s_lim = soft_limit_scale(mag, w.inv_i_max);
-  const float id_ref = id_raw * s_lim;
-  const float iq_ref = iq_raw * s_lim;
-  const float idq_re = id_ref * cth - iq_ref * sth;
-  const float idq_im = id_ref * sth + iq_ref * cth;
-  const float aw = w.en * aw_gate(mag, w.inv_i_max);
+  const T e_dc = w.one_m_c * (vdc - w.vdc_ref) + w.c * (w.p_ref - p_pcc);
+  const T id_raw = w.kp_dc * e_dc + xdc;
+  const T e_q = w.q_ref - q_pcc;
+  const T iq_raw = -(w.kp_q * e_q + xq);
+  const T mag = sqrt_t(id_raw * id_raw + iq_raw * iq_raw + lit<T>(1e-30));
+  const T s_lim = soft_limit_scale(mag, w.inv_i_max);
+  const T id_ref = id_raw * s_lim;
+  const T iq_ref = iq_raw * s_lim;
+  const T idq_re = id_ref * cth - iq_ref * sth;
+  const T idq_im = id_ref * sth + iq_ref * cth;
+  const T aw = w.en * aw_gate(mag, w.inv_i_max);
 
   // --- rhs_from_algebra ----------------------------------------------------
 #pragma unroll
   for (int k = 0; k < N; ++k) {
-    const float i_re = y[k], i_im = y[N + k];
-    const float uf_re = y[4 * N + k], uf_im = y[5 * N + k];
-    float iref_re, iref_im;
+    const T i_re = y[k], i_im = y[N + k];
+    const T uf_re = y[4 * N + k], uf_im = y[5 * N + k];
+    T iref_re, iref_im;
     if (N == 1) {
       iref_re = idq_re * w.en;
       iref_im = idq_im * w.en;
@@ -285,8 +306,8 @@ __device__ __forceinline__ void rhs_given_v(const float (&y)[6 * N + 5],
       iref_re = (idq_re * w.ak_re[k] - idq_im * w.ak_im[k]) * w.en;
       iref_im = (idq_re * w.ak_im[k] + idq_im * w.ak_re[k]) * w.en;
     }
-    float dc_re = ((vt_re[k] - v_re[k]) - i_re * w.rf) * w.wb_lf - (-i_im) * w.wb;
-    float dc_im = ((vt_im[k] - v_im[k]) - i_im * w.rf) * w.wb_lf - i_re * w.wb;
+    T dc_re = ((vt_re[k] - v_re[k]) - i_re * w.rf) * w.wb_lf - (-i_im) * w.wb;
+    T dc_im = ((vt_im[k] - v_im[k]) - i_im * w.rf) * w.wb_lf - i_re * w.wb;
     dy[k] = dc_re * w.conn + i_re * w.dis;
     dy[N + k] = dc_im * w.conn + i_im * w.dis;
     dy[2 * N + k] = uf_re * w.ki_gcc_en;
@@ -302,14 +323,14 @@ __device__ __forceinline__ void rhs_given_v(const float (&y)[6 * N + 5],
   dy[6 * N + 4] = w.wb * (w.kp_pll * v_q + xpll);
 }
 
-// One control window of n_sub Kahan-compensated RK4 substeps of
+// One float32 control window of n_sub Kahan-compensated RK4 substeps of
 // rhs(ys, rot_re, rot_im, dy). The grid phasor is computed twice per substep
 // (k2 and k3 share the half-point; k4's is the next substep's k1), as
 // rhs_core.grid_rot is shared in the plain version. Substep times are
 // t0 + f32(s)*h, with h, h/2 and h/6 rounded once on the host.
 template <int N, class Rhs>
 __device__ __forceinline__ void rk4_window(float (&y)[6 * N + 5], float t0,
-                                           const Feeder<N>& f, int n_sub,
+                                           const Feeder<float, N>& f, int n_sub,
                                            float h, float hh, float h6,
                                            Rhs rhs) {
   constexpr int NS = 6 * N + 5;

@@ -42,9 +42,9 @@ window_kernel(const float* __restrict__ y_in, const float* __restrict__ t0_in,
   auto P = [&](int f) { return p[static_cast<size_t>(f) * n + e]; };
   auto U = [&](int f) { return u[static_cast<size_t>(f) * n + e]; };
 
-  Unit<N> w;
+  Unit<float, N> w;
   load_unit(w, P, U);
-  Feeder<N> fd;
+  Feeder<float, N> fd;
   load_feeder(fd, w.ak_re, w.ak_im, P, U);
 
   // rhs_core.rhs: the DER's own injection sets its PCC voltage
@@ -56,9 +56,9 @@ window_kernel(const float* __restrict__ y_in, const float* __restrict__ t0_in,
       ii_re[k] = ys[k] * w.conn;
       ii_im[k] = ys[N + k] * w.conn;
     }
-    pcc_voltage<N>(ii_re, ii_im, rot_re, rot_im, fd, w.ak_re, w.ak_im, v_re,
-                   v_im);
-    rhs_given_v<N>(ys, v_re, v_im, w, dy);
+    pcc_voltage<float, N>(ii_re, ii_im, rot_re, rot_im, fd, w.ak_re, w.ak_im,
+                          v_re, v_im);
+    rhs_given_v<float, N>(ys, v_re, v_im, w, dy);
   };
 
   float y[NS];

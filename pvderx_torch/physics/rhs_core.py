@@ -4,9 +4,11 @@ Implements SPEC.md §§4-5 once, parameterized over the array backend ``xp``
 (`pvderx_torch.physics.xp.TorchXP` for the torch path, ``numpy`` for the
 scipy oracle in `pvderx_torch.oracle`), so the oracle and the torch engine
 share the same equations; the oracle then differs only in the integrator
-(LSODA vs fixed-step RK4). The CUDA window kernel
-(`pvderx_torch/ops/csrc/window.cu`) restates this arithmetic per thread and
-is held against this file by the tests and `chip_smoke.py`.
+(LSODA vs fixed-step RK4). The double-float namespace
+(`pvderx_torch.ops.dualfloat.DFXP`) runs it unchanged in df32. The CUDA
+window kernels restate this arithmetic per thread, in float and in
+double-float (`pvderx_torch/ops/csrc/rhs.cuh`), and are held against this
+file by the tests and `chip_smoke.py`.
 
 All complex phasors are carried as explicit (re, im) pairs (:class:`C`), no
 complex dtypes: the same pairs are what the CUDA kernel keeps in registers.

@@ -29,7 +29,8 @@ def test_torch_import_pulls_in_no_jax():
     mods = list(_modules())
     assert {"pvderx_torch.ops.window", "pvderx_torch.physics.fleet",
             "pvderx_torch.env.fleet", "pvderx_torch.oracle",
-            "pvderx_torch.ops._build"} <= set(mods) and len(mods) >= 22
+            "pvderx_torch.ops._build", "pvderx_torch.ops.dualfloat",
+            "pvderx_torch.env.vector"} <= set(mods) and len(mods) >= 23
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
