@@ -36,17 +36,26 @@ Phases, one line each (a failing phase raises, so the script exits non-zero):
               launches == steps; then 60 per-unit steps ([N, 13+4M] obs).
 10. df_kernel — the CUDA df32 window kernel (K3) against its plain df32
               version on the six cases of phase 3, each with a seeded
-              nonzero y_lo (~1e-9 relative), at n_sub=8 with dt=DT*8/64 (the
+              nonzero y_lo (~1e-9 relative): the 32768-env case at the main
+              path's n_sub=64, the others at n_sub=8 with dt=DT*8/64 (the
               main path's h; the plain version is tens of thousands of tiny
               torch kernels per RHS evaluation): max abs error on hi + lo
               <= 1e-9, one launch each, every output |lo| <= ulp(hi)/2.
-11. df_gate — K3 on the gate scenario at presets 10 and 50, n_sub=64, lo
-              carried from 0, against the float64 LSODA truth: <= 1e-6.
-12. df_main — the df32 tier (`make_batch_fns_df`) at full width (preset 10,
+11. df_f64  — K3 against the float64 RK4 window (the oracle's
+              `rk4_window_np`) on the six cases at 4 envs each, n_sub=64,
+              the same f32-rounded inputs, lo = 0 on input: <= 1e-10. The f32
+              kernel (K1) on the same inputs must miss that bound: this
+              phase, not the gate, tells the tiers apart.
+12. df_gate — K3 on the gate scenario at presets 10 and 50, n_sub=64, lo
+              carried from 0, against the float64 LSODA truth: <= 1e-6 (the
+              tier's contract; RK4's truncation error dominates it, so K1
+              reads about the same).
+13. df_main — the df32 tier (`make_batch_fns_df`) at full width (preset 10,
               f32, n_sub=64, 32768 envs, zero-action policy): reset,
               warm-up, best of two 600-step chunks, the linearity check; K3
               launches == steps, obs/reward finite, episodes done, y_lo
-              alive; K3 and K1 ms per launch at the same inputs.
+              alive; K3, K1 and the plain df32 version ms per call at the
+              same inputs and n_sub.
 
 Then the kernel table as one JSON line, the card line, and the device line.
 Needs one CUDA card; imports torch, numpy, scipy and pvderx_torch only.
@@ -65,6 +74,9 @@ import torch
 KERNEL_TOL = 5e-6        # kernel vs plain, one window, f32
 GATE_TOL = 4e-6          # f32 kernel vs float64 LSODA truth, gate scenario
 DF_TOL = 1e-9            # df32 kernel vs plain df32, one window, hi + lo
+# df32 kernel vs float64 RK4, one window: the df32 noise reads ~1e-13 and
+# the f32 kernel's ~1e-7 at these inputs (CPU rehearsal of the plain versions)
+DF_F64_TOL = 1e-10
 DF_GATE_TOL = 1e-6       # df32 kernel vs float64 LSODA truth, gate scenario
 DF_CHECK_SUB = 8         # substeps of the df32 comparisons, at the main h
 N_ENVS = 32768
@@ -539,9 +551,11 @@ def _lo_normalized(hi, lo) -> bool:
     return bool((lo.abs() <= 0.5 * ulp).all())
 
 
-def check_df_kernel(device, cases=KERNEL_CASES, n_sub=DF_CHECK_SUB):
+def check_df_kernel(device, cases=KERNEL_CASES, n_sub=DF_CHECK_SUB,
+                    main_sub=N_SUB):
     """Phase 10: the df32 kernel vs its plain version on every case, at
-    n_sub substeps of the main path's h. Returns the max error."""
+    n_sub substeps of the main path's h (the main path's case at main_sub).
+    Returns the max error."""
     from pvderx_torch.ops.dualfloat import (
         rk4_window_batch_df, rk4_window_batch_df_ref)
 
@@ -549,7 +563,8 @@ def check_df_kernel(device, cases=KERNEL_CASES, n_sub=DF_CHECK_SUB):
     worst = 0.0
     for i, (name, preset, n, kw) in enumerate(cases):
         n_ph, *args = df_inputs(preset, n, i, device, **kw)
-        wkw = dict(n_ph=n_ph, n_sub=n_sub, dt=DT * n_sub / N_SUB)
+        sub = main_sub if name == "preset10_main" else n_sub
+        wkw = dict(n_ph=n_ph, n_sub=sub, dt=DT * sub / N_SUB)
         before = rk4_window_batch_df.launches
         hi, lo = rk4_window_batch_df(*args, **wkw)
         moved = rk4_window_batch_df.launches - before
@@ -557,7 +572,7 @@ def check_df_kernel(device, cases=KERNEL_CASES, n_sub=DF_CHECK_SUB):
         _sync(device)
         err = _df_err(hi, lo, ref_hi, ref_lo)
         normal = _lo_normalized(hi, lo)
-        phase("df_kernel", case=name, n=n, n_ph=n_ph, n_sub=n_sub,
+        phase("df_kernel", case=name, n=n, n_ph=n_ph, n_sub=sub,
               max_abs_err=err, tol=DF_TOL, launches=moved,
               lo_normalized=normal, max_abs_lo=float(lo.abs().max()))
         if not (np.isfinite(err) and err <= DF_TOL):
@@ -570,9 +585,52 @@ def check_df_kernel(device, cases=KERNEL_CASES, n_sub=DF_CHECK_SUB):
     return worst
 
 
+def check_df_f64(device, cases=KERNEL_CASES, n=4, n_sub=N_SUB):
+    """Phase 11: the df32 kernel vs the float64 RK4 window at the same
+    f32-rounded inputs (lo = 0), and the f32 kernel beside it, which must
+    miss the bound. Returns (df32 error, f32 error)."""
+    import dataclasses
+
+    from pvderx_torch import make_params, nominal_exog, oracle
+    from pvderx_torch.ops.dualfloat import rk4_window_batch_df
+    from pvderx_torch.ops.window import P_FIELDS, U_FIELDS, rk4_window_batch
+
+    worst = worst32 = 0.0
+    for i, (name, preset, _, kw) in enumerate(cases):
+        n_ph, y, t0, pp, uu = window_inputs(preset, n, 200 + i, device, **kw)
+        wkw = dict(n_ph=n_ph, n_sub=n_sub, dt=DT)
+        hi, lo = rk4_window_batch_df(y, torch.zeros_like(y), t0, pp, uu, **wkw)
+        y32 = rk4_window_batch(y, t0, pp, uu, **wkw)
+        got = (hi.double() + lo.double()).cpu().numpy()
+        got32 = y32.double().cpu().numpy()
+        y0, t, p_np, u_np = (a.double().cpu().numpy() for a in (y, t0, pp, uu))
+        p0 = make_params(preset, **kw.get("p_over", {}))
+        u0 = dataclasses.replace(nominal_exog(), **kw.get("u_over", {}))
+        err = err32 = 0.0
+        for e in range(n):
+            pe = dataclasses.replace(
+                p0, **{f: float(p_np[j, e]) for j, f in enumerate(P_FIELDS)})
+            ue = dataclasses.replace(
+                u0, **{f: float(u_np[j, e]) for j, f in enumerate(U_FIELDS)})
+            want = oracle.rk4_window_np(y0[e], float(t[e]), DT, n_sub, pe, ue)
+            err = max(err, float(np.abs(got[e] - want).max()))
+            err32 = max(err32, float(np.abs(got32[e] - want).max()))
+        phase("df_f64", case=name, n=n, n_ph=n_ph, n_sub=n_sub,
+              max_abs_err=err, tol=DF_F64_TOL, f32_kernel_err=err32)
+        if not (np.isfinite(err) and err <= DF_F64_TOL):
+            raise AssertionError(
+                f"df32 kernel vs float64 RK4 {name}: {err:.3e} > {DF_F64_TOL}")
+        worst, worst32 = max(worst, err), max(worst32, err32)
+    if not worst32 > DF_F64_TOL:
+        raise AssertionError(
+            f"the f32 kernel meets the df32 bound ({worst32:.3e}): the "
+            "phase does not tell the tiers apart")
+    return worst, worst32
+
+
 def check_df_gate(device, presets=("10", "50"), n_steps=120, n=128,
                   n_sub=N_SUB):
-    """Phase 11: the df32 kernel vs the float64 LSODA truth on the gate
+    """Phase 12: the df32 kernel vs the float64 LSODA truth on the gate
     scenario, y_lo carried from 0 (y0 is an f32 input by contract)."""
     from pvderx_torch import make_params, oracle
     from pvderx_torch.ops.dualfloat import rk4_window_batch_df
@@ -604,8 +662,8 @@ def check_df_gate(device, presets=("10", "50"), n_steps=120, n=128,
 
 
 def run_df_main(device, card, n_envs=N_ENVS, n_sub=N_SUB, warm=WARM_STEPS,
-                chunk=CHUNK_STEPS, plain_sub=DF_CHECK_SUB):
-    """Phase 12: the df32 tier at full width through the df32 kernel."""
+                chunk=CHUNK_STEPS):
+    """Phase 13: the df32 tier at full width through the df32 kernel."""
     from pvderx_torch.env import core, make_batch_fns_df, make_env_config
     from pvderx_torch.env import rollout_df
     from pvderx_torch.ops.dualfloat import (
@@ -638,8 +696,8 @@ def run_df_main(device, card, n_envs=N_ENVS, n_sub=N_SUB, warm=WARM_STEPS,
     state, y_lo = carry
     lo_max = float(y_lo.abs().max())
 
-    # K3 (and K1 on hi) alone at the main path's shapes, and the plain
-    # version at plain_sub substeps of the same h
+    # K3, K1 on hi and the plain df32 version alone at the main path's
+    # shapes and n_sub
     t_win, exog, _, _ = core._pre_window(
         cfg, state, torch.zeros(n_envs, dtype=torch.int64, device=device))
     pk, uk = pack_struct(state.der, P_FIELDS), pack_struct(exog, U_FIELDS)
@@ -652,8 +710,7 @@ def run_df_main(device, card, n_envs=N_ENVS, n_sub=N_SUB, warm=WARM_STEPS,
         k1_ms = _time_ms(lambda: rk4_window_batch(state.y, t_win, pk, uk, **kw),
                          20, device)
         plain_ms = _time_ms(lambda: rk4_window_batch_df_ref(
-            state.y, y_lo, t_win, pk, uk, n_ph=cfg.der.n_ph, n_sub=plain_sub,
-            dt=cfg.dt_ctrl * plain_sub / n_sub), 1, device)
+            state.y, y_lo, t_win, pk, uk, **kw), 1, device)
     bytes_ms = 1e3 * window_df_bytes(n_envs, 1) / PEAK_BYTES_PER_S
     ops_ms = 1e3 * window_df_ops(n_envs, 1, n_sub) / PEAK_F32_PER_S
     step_ms = 1e3 * out["chunk_s"] / chunk
@@ -664,7 +721,7 @@ def run_df_main(device, card, n_envs=N_ENVS, n_sub=N_SUB, warm=WARM_STEPS,
           k3_over_k1=(kernel_ms / k1_ms if kernel_ms else None),
           kernel_share_of_step=(kernel_ms / step_ms if kernel_ms else None),
           bound_ms=max(bytes_ms, ops_ms), plain_window_ms=plain_ms,
-          plain_n_sub=plain_sub, peak_mem_mib=peak_mib, launches=launches,
+          plain_n_sub=n_sub, peak_mem_mib=peak_mib, launches=launches,
           steps=out["steps"], dones=out["dones"], rew_sum=out["rew_sum"],
           finite=out["finite"], max_abs_y_lo=lo_max)
     phase("df_linear", card=card, two_chunks_over_one=out["ratio"],
@@ -673,7 +730,7 @@ def run_df_main(device, card, n_envs=N_ENVS, n_sub=N_SUB, warm=WARM_STEPS,
     if not lo_max > 0.0:
         raise AssertionError("df_main: y_lo is zero everywhere")
     return dict(launches=launches, kernel_ms=kernel_ms, plain_ms=plain_ms,
-                bound_ms=max(bytes_ms, ops_ms),
+                plain_n_sub=n_sub, bound_ms=max(bytes_ms, ops_ms),
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes")
 
 
@@ -735,6 +792,7 @@ def main() -> int:
     check_fleet_gate(device)
     fleet_out = run_fleet_main(device, card)
     df_err = check_df_kernel(device)
+    check_df_f64(device)
     check_df_gate(device)
     df_out = run_df_main(device, card)
 
@@ -779,6 +837,7 @@ def main() -> int:
         "max_abs_err": df_err,
         "ms": df_out["kernel_ms"],
         "plain_ms": df_out["plain_ms"],
+        "plain_n_sub": df_out["plain_n_sub"],
         "bound_ms": df_out["bound_ms"],
         "bound_by": df_out["bound_by"],
         "library_ms": None,

@@ -323,7 +323,7 @@ def fleet_rollout(fc: FleetConfig, state, obs, policy_fn, n_steps: int,
     policy_fn(obs, generator) -> actions. Returns (state, obs, rewards
     [T, N], dones [T, N])."""
     return rollout_with(_step_batch_impl, fc, state, obs, policy_fn, n_steps,
-                        generator)
+                        generator, pack_struct(state.der, P_FIELDS))
 
 
 __all__ = [

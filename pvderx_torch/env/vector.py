@@ -126,18 +126,14 @@ def rollout(cfg: core.EnvConfig, state, obs, policy_fn, n_steps: int,
     dones [T, N]).
     """
     return rollout_with(_step_batch_impl, cfg, state, obs, policy_fn, n_steps,
-                        generator)
+                        generator, pack_struct(state.der, P_FIELDS))
 
 
 def rollout_with(step_impl, cfg, state, obs, policy_fn, n_steps: int,
-                 generator: torch.Generator, p_pack=None):
+                 generator: torch.Generator, p_pack):
     """The rollout loop over ``step_impl(cfg, state, actions, generator,
-    p_pack)``, a batched step with autoreset. ``p_pack`` defaults to the
-    params pack of ``state.der``."""
-    # per-env params never change across steps (soft reset keeps der), so the
-    # kernel's params pack is loop-invariant: pack once outside the loop
-    if p_pack is None:
-        p_pack = pack_struct(state.der, P_FIELDS)
+    p_pack)``, a batched step with autoreset. Per-env params never change
+    across steps (soft reset keeps der), so the caller packs them once."""
     rews, dones = [], []
     for _ in range(n_steps):
         acts = policy_fn(obs, generator)

@@ -349,12 +349,17 @@ class DFXP:
 # ---------------------------------------------------------------------------
 # the df32 window
 # ---------------------------------------------------------------------------
-# Operations per env per RK4 substep of the reference df32 window program (4
-# DF RHS evaluations with hoisted Prep, 2 DF grid rotations, the DF update),
-# counted on its jaxpr by the reference's op counter
+# Operations per env per RK4 substep of the df32 window (4 DF RHS evaluations
+# with hoisted Prep, 2 DF grid rotations, the DF update), counted on the
+# reference program's jaxpr by the reference's op counter
 # (pvderx/diag/roofline.py::_count_jaxpr, the hoisted Prep and first grid
-# rotation subtracted), with the Dekker two-product the reference uses.
-OPS_PER_SUBSTEP_DF = {1: 28818, 3: 52718}
+# rotation subtracted), with the work the function needs and the CUDA kernel
+# does: the two-product error as one FMA (p = a*b, then fma(a, b, -p): 3
+# flops, not Dekker's 17), one sin/cos range reduction per phasor (the
+# reference computes both polynomials for sin and again for cos), and no
+# count for jit call wrappers. The reference program as written counts
+# 28818 (1-phase) and 52718 (3-phase).
+OPS_PER_SUBSTEP_DF = {1: 14746, 3: 29830}
 
 
 def window_df_bytes(n: int, n_ph: int) -> int:

@@ -216,11 +216,20 @@ def test_torch_df_rhs_matches_reference_and_f64(preset, variant):
     assert np.abs(g - truth).max() <= 1e-9, np.abs(g - truth).max()
 
 
-def test_torch_df_window_op_count_is_the_reference_programs():
+# the reference df32 substep as written: Dekker two-product, a full sin/cos
+# evaluation for each of sin and cos, jit call wrappers counted
+REFERENCE_PROGRAM_OPS = {1: 28818, 3: 52718}
+
+
+def test_torch_df_window_op_count_is_the_reference_programs(monkeypatch):
     """OPS_PER_SUBSTEP_DF is the reference df32 substep's jaxpr op count
     (`pvderx/diag/roofline.py::_count_jaxpr`, `_classify`), with the hoisted
     Prep and first grid rotation subtracted and the substep's start time an
-    input, as `substep_op_count` counts K1's program."""
+    input, as `substep_op_count` counts K1's program; counted with the work
+    the function needs and the CUDA kernel does: the two-product error as an
+    FMA (here p = a*b, e = a*b - p: 3 ops, as mul + fma count 3 flops), one
+    sin/cos evaluation per phasor, and no jit call wrappers. The program as
+    written is pinned too."""
     from collections import Counter
 
     import jax
@@ -233,7 +242,15 @@ def test_torch_df_window_op_count_is_the_reference_programs():
     DF, dfp = ref_df.DF, ref_df.dfp
     lift = lambda tree: jax.tree.map(lambda v: DF(v, jnp.zeros_like(v)), tree)
 
-    def counts(n_ph):
+    def fma_two_prod(a, b):
+        p = a * b
+        return p, a * b - p
+
+    def cexpj_once(phi, xp):
+        s, c = ref_df._sincos(ref_df._lift(phi))
+        return rhs_core.C(c, s)
+
+    def counts(n_ph, needed):
         p0 = jax_make_params("10" if n_ph == 1 else "50").astype(jnp.float32)
         pj = jax.tree.map(jnp.float32, p0)
         uj = jax.tree.map(jnp.float32, jax_nominal_exog())
@@ -262,15 +279,24 @@ def test_torch_df_window_op_count_is_the_reference_programs():
         y = jnp.zeros((p0.n_states,), jnp.float32)
         z = jnp.float32(0.0)
         c, hc = Counter(), Counter()
-        _count_jaxpr(jax.make_jaxpr(substep)(y, y, z, z, z, pj, uj).jaxpr, c)
-        _count_jaxpr(jax.make_jaxpr(hoisted)(z, pj, uj).jaxpr, hc)
-        return _classify(c - hc)
+        with monkeypatch.context() as m:
+            if needed:
+                m.setattr(ref_df, "_two_prod", fma_two_prod)
+                m.setattr(rhs_core, "cexpj", cexpj_once)
+            _count_jaxpr(jax.make_jaxpr(substep)(y, y, z, z, z, pj, uj).jaxpr, c)
+            _count_jaxpr(jax.make_jaxpr(hoisted)(z, pj, uj).jaxpr, hc)
+        c = c - hc
+        if needed:
+            c.pop("jit", None)
+        return _classify(c)
 
     for n_ph in (1, 3):
-        c = counts(n_ph)
+        c = counts(n_ph, needed=False)
+        assert c["total"] == REFERENCE_PROGRAM_OPS[n_ph], (n_ph, c["total"])
+        c = counts(n_ph, needed=True)
         assert c["transcendental"] == 0       # sin/cos/exp are DF polynomials
         assert c["total"] == OPS_PER_SUBSTEP_DF[n_ph], (n_ph, c["total"])
-    assert window_df_ops(32768, 1, 64) == 28818 * 64 * 32768
+    assert window_df_ops(32768, 1, 64) == 14746 * 64 * 32768
     # (t0, y_hi, y_lo, 29 params, 15 exog) read, (hi, lo) written, f32
     assert window_df_bytes(1, 1) == 4 * (1 + 4 * 11 + 29 + 15)
     assert window_df_bytes(1, 3) == 4 * (1 + 4 * 23 + 29 + 15)
