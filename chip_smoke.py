@@ -35,12 +35,15 @@ Phases, one line each (a failing phase raises, so the script exits non-zero):
               warm-up, best of two 600-step chunks, the linearity check, K2
               launches == steps; then 60 per-unit steps ([N, 13+4M] obs).
 10. df_kernel — the CUDA df32 window kernel (K3) against its plain df32
-              version on the six cases of phase 3, each with a seeded
-              nonzero y_lo (~1e-9 relative): the 32768-env case at the main
-              path's n_sub=64, the others at n_sub=8 with dt=DT*8/64 (the
-              main path's h; the plain version is tens of thousands of tiny
-              torch kernels per RHS evaluation): max abs error on hi + lo
-              <= 1e-9, one launch each, every output |lo| <= ulp(hi)/2.
+              version on the six cases of phase 3 and two ragged ones, N=37
+              at preset 10 and at preset 50 unbalanced (a partial warp; for
+              the two-lane team of the three-phase kernel, a partial team
+              block), each with a seeded nonzero y_lo (~1e-9 relative): the
+              32768-env case at the main path's n_sub=64, the others at
+              n_sub=8 with dt=DT*8/64 (the main path's h; the plain version
+              is tens of thousands of tiny torch kernels per RHS
+              evaluation): max abs error on hi + lo <= 1e-9, one launch
+              each, every output |lo| <= ulp(hi)/2.
 11. df_f64  — K3 against the float64 RK4 window (the oracle's
               `rk4_window_np`) on the six cases at 4 envs each, n_sub=64,
               the same f32-rounded inputs, lo = 0 on input: <= 1e-10. The f32
@@ -55,9 +58,12 @@ Phases, one line each (a failing phase raises, so the script exits non-zero):
               warm-up, best of two 600-step chunks, the linearity check; K3
               launches == steps, obs/reward finite, episodes done, y_lo
               alive; K3, K1 and the plain df32 version ms per call at the
-              same inputs and n_sub.
+              same inputs and n_sub; K3 at preset 50 (three-phase), 32768
+              envs, n_sub=64, on `df_inputs`.
 
-Then the kernel table as one JSON line, the card line, and the device line.
+Then the kernel table as one JSON line (each kernel with its bound and its
+lane-issue bound: operations / (132 SMs * 128 FP32 lanes * max SM clock)),
+the card line, and the device line.
 Needs one CUDA card; imports torch, numpy, scipy and pvderx_torch only.
 """
 from __future__ import annotations
@@ -551,7 +557,13 @@ def _lo_normalized(hi, lo) -> bool:
     return bool((lo.abs() <= 0.5 * ulp).all())
 
 
-def check_df_kernel(device, cases=KERNEL_CASES, n_sub=DF_CHECK_SUB,
+DF_CASES = KERNEL_CASES + [
+    ("ragged_n37", "10", 37, {}),
+    ("ragged_n37_unbalanced_3ph", "50", 37, dict(u_over=dict(v_g2=0.15))),
+]
+
+
+def check_df_kernel(device, cases=DF_CASES, n_sub=DF_CHECK_SUB,
                     main_sub=N_SUB):
     """Phase 10: the df32 kernel vs its plain version on every case, at
     n_sub substeps of the main path's h (the main path's case at main_sub).
@@ -711,8 +723,16 @@ def run_df_main(device, card, n_envs=N_ENVS, n_sub=N_SUB, warm=WARM_STEPS,
                          20, device)
         plain_ms = _time_ms(lambda: rk4_window_batch_df_ref(
             state.y, y_lo, t_win, pk, uk, **kw), 1, device)
+    # K3 three-phase at the same width and n_sub
+    k3_50_ms = None
+    if cuda:
+        _, *args50 = df_inputs("50", n_envs, 50, device)
+        k3_50_ms = _time_ms(lambda: rk4_window_batch_df(
+            *args50, n_ph=3, n_sub=n_sub, dt=cfg.dt_ctrl), 10, device)
     bytes_ms = 1e3 * window_df_bytes(n_envs, 1) / PEAK_BYTES_PER_S
     ops_ms = 1e3 * window_df_ops(n_envs, 1, n_sub) / PEAK_F32_PER_S
+    bytes50_ms = 1e3 * window_df_bytes(n_envs, 3) / PEAK_BYTES_PER_S
+    ops50_ms = 1e3 * window_df_ops(n_envs, 3, n_sub) / PEAK_F32_PER_S
     step_ms = 1e3 * out["chunk_s"] / chunk
     phase("df_main", card=card, n_envs=n_envs, n_sub=n_sub, reset_s=reset_s,
           init_res_max=init_res_max, timed_steps=chunk,
@@ -721,7 +741,10 @@ def run_df_main(device, card, n_envs=N_ENVS, n_sub=N_SUB, warm=WARM_STEPS,
           k3_over_k1=(kernel_ms / k1_ms if kernel_ms else None),
           kernel_share_of_step=(kernel_ms / step_ms if kernel_ms else None),
           bound_ms=max(bytes_ms, ops_ms), plain_window_ms=plain_ms,
-          plain_n_sub=n_sub, peak_mem_mib=peak_mib, launches=launches,
+          plain_n_sub=n_sub, k3_preset50_ms_per_launch=k3_50_ms,
+          k3_preset50_bound_ms=max(bytes50_ms, ops50_ms),
+          peak_mem_mib=peak_mib,
+          launches=launches,
           steps=out["steps"], dones=out["dones"], rew_sum=out["rew_sum"],
           finite=out["finite"], max_abs_y_lo=lo_max)
     phase("df_linear", card=card, two_chunks_over_one=out["ratio"],
@@ -731,7 +754,8 @@ def run_df_main(device, card, n_envs=N_ENVS, n_sub=N_SUB, warm=WARM_STEPS,
         raise AssertionError("df_main: y_lo is zero everywhere")
     return dict(launches=launches, kernel_ms=kernel_ms, plain_ms=plain_ms,
                 plain_n_sub=n_sub, bound_ms=max(bytes_ms, ops_ms),
-                bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                preset50_ms=k3_50_ms)
 
 
 def ptxas_summary(report: str) -> dict:
@@ -769,7 +793,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     from pvderx_torch.ops import _build
-    from pvderx_torch.ops.window import window_bytes, window_ops
+    from pvderx_torch.ops.dualfloat import window_df_ops
+    from pvderx_torch.ops.window import (
+        fleet_window_ops, window_bytes, window_ops)
 
     device = "cuda"
     kind = torch.cuda.get_device_name(0)
@@ -801,7 +827,8 @@ def main() -> int:
     bytes_ms = 1e3 * n_bytes / PEAK_BYTES_PER_S
     ops_ms = 1e3 * n_ops / PEAK_F32_PER_S
     # one operation per FP32 lane per clock at the card's max SM clock
-    issue_ms = 1e3 * n_ops / (132 * 128 * clock_mhz * 1e6)
+    issue = lambda ops: 1e3 * ops / (132 * 128 * clock_mhz * 1e6)
+    issue_ms = issue(n_ops)
     phase("bound", bytes=n_bytes, ops=n_ops, bytes_ms=bytes_ms,
           ops_ms_at_67tflops=ops_ms, ops_ms_at_lane_issue=issue_ms)
     print(json.dumps({"kernels": [{
@@ -815,6 +842,7 @@ def main() -> int:
         "plain_ms": main_out["plain_ms"],
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "issue_bound_ms": issue_ms,
         "library_ms": None,
     }, {
         "name": "rk4_fleet_window",
@@ -827,6 +855,8 @@ def main() -> int:
         "plain_ms": fleet_out["plain_ms"],
         "bound_ms": fleet_out["bound_ms"],
         "bound_by": fleet_out["bound_by"],
+        "issue_bound_ms": issue(fleet_window_ops(FLEET_ENVS, FLEET_M, 1,
+                                                 N_SUB)),
         "library_ms": None,
     }, {
         "name": "rk4_window_df",
@@ -840,6 +870,9 @@ def main() -> int:
         "plain_n_sub": df_out["plain_n_sub"],
         "bound_ms": df_out["bound_ms"],
         "bound_by": df_out["bound_by"],
+        "issue_bound_ms": issue(window_df_ops(N_ENVS, 1, N_SUB)),
+        "preset50_ms": df_out["preset50_ms"],
+        "preset50_issue_bound_ms": issue(window_df_ops(N_ENVS, 3, N_SUB)),
         "library_ms": None,
     }]}), flush=True)
     print(card, flush=True)

@@ -4,6 +4,7 @@
     python3 profile_torch_step.py            # the single-DER main path
     python3 profile_torch_step.py --fleet    # the fleet (BASELINE config 5)
     python3 profile_torch_step.py --df       # the df32 tier (make_batch_fns_df)
+    python3 profile_torch_step.py --k3 [CSRC_DIR ...]
 
 Runs the main path (preset 10, f32, n_sub=64, 32768 envs, zero-action policy,
 autoreset), with ``--fleet`` the fleet path (preset 10, f32, n_sub=64,
@@ -14,13 +15,30 @@ line: wall ms per step, device-busy ms per step (sum of
 kernel times; one stream, so kernels do not overlap), the device's idle
 share, kernel launches per step, and the kernels that take the most device
 time.
+
+``--k3`` times the df32 window kernel alone instead, across builds of
+``window_df.cu``: this checkout's sources with their default lanes per env,
+the same sources with the other team size for each model (-DTEAM_1PH,
+-DTEAM_3PH), and each CSRC_DIR given (another version's
+``pvderx_torch/ops/csrc``, e.g. unpacked with ``git archive``). Each build
+goes to a temporary directory (one nvcc per build, in parallel). At presets
+10 and 50, 32768 envs, n_sub=64, on ``chip_smoke.df_inputs``, it prints one
+JSON line per build: registers and spills (ptxas), the substep loop's SASS
+size (cuobjdump), ms per launch (CUDA events, two rounds in turns: forward,
+then backward) and whether the outputs equal the first build's bit for bit.
 """
 from __future__ import annotations
 
+import ctypes
 import json
+import os
+import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import torch
 from torch.autograd import DeviceType
@@ -29,6 +47,106 @@ from torch.profiler import ProfilerActivity, profile
 
 N_ENVS, N_SUB, STEPS, WARM = 32768, 64, 20, 10
 FLEET_ENVS, FLEET_M = 4096, 16
+
+
+def sass_loops(sass: str) -> dict:
+    """Per kernel of a `cuobjdump -sass` listing: its instruction count, the
+    static size of its outermost loop (the largest backward branch: the
+    substep loop) and of the largest loop inside that one (the stage loop,
+    0 if the stages are written out), and an estimate of the instructions
+    one substep runs: outer + 3 * inner (the stage body runs four times;
+    this counts every update variant on each pass, so it is a little high)."""
+    funcs, cur = {}, None
+    for ln in sass.splitlines():
+        hit = re.match(r"\s*Function : (\S+)", ln)
+        if hit:
+            cur = funcs.setdefault(hit.group(1), [])
+            continue
+        hit = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", ln)
+        if hit and cur is not None and not hit.group(2).startswith("NOP"):
+            cur.append((int(hit.group(1), 16), hit.group(2)))
+    out = {}
+    for name, ins in funcs.items():
+        loops = []
+        for addr, text in ins:
+            hit = re.search(r"BRA\s+(?:\S+\s+)?0x([0-9a-f]+)", text)
+            if hit and int(hit.group(1), 16) < addr:
+                lo = int(hit.group(1), 16)
+                loops.append((sum(lo <= a <= addr for a, _ in ins), lo, addr))
+        outer = max(loops, default=(0, 0, 0))
+        inner = max((lp for lp in loops if lp != outer and outer[1] <= lp[1]
+                     and lp[2] <= outer[2]), default=(0, 0, 0))
+        out[name] = dict(instructions=len(ins), substep_loop=outer[0],
+                         stage_loop=inner[0],
+                         per_substep_est=outer[0] + 3 * inner[0])
+    return out
+
+
+def profile_k3(card: str, dirs: list[str]) -> int:
+    """The --k3 mode (see the module docstring)."""
+    from chip_smoke import DT, _time_ms, df_inputs, ptxas_summary
+    from pvderx_torch.ops import _build
+    from pvderx_torch.ops.dualfloat import split_h
+
+    here = _build.CSRC
+    builds = [("this", here, []),
+              ("this_team_swapped", here, ["-DTEAM_1PH=2", "-DTEAM_3PH=1"])]
+    builds += [(f"dir{i}:{d}", Path(d), []) for i, d in enumerate(dirs)]
+    tmp = Path(tempfile.mkdtemp(prefix="k3_"))
+    procs = []
+    for i, (_, src, defs) in enumerate(builds):
+        so = tmp / f"k3_{i}.so"
+        procs.append((so, subprocess.Popen(
+            [_build.nvcc(), *_build.NVCC_FLAGS, *defs, "-shared", "-o",
+             str(so), str(src / "window_df.cu")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    libs, info = [], []
+    for (name, _, _), (so, proc) in zip(builds, procs):
+        report = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {name}:\n{report}")
+        lib = ctypes.CDLL(str(so))
+        fn = lib.pvderx_rk4_window_df
+        fn.argtypes, fn.restype = _build.ENTRIES["pvderx_rk4_window_df"]
+        sass = subprocess.run([cuobjdump, "-sass", str(so)], capture_output=True,
+                              text=True, check=True).stdout
+        loops = {k: v for k, v in sass_loops(sass).items() if "window_df" in k}
+        libs.append(fn)
+        info.append(dict(ptxas=ptxas_summary(report), sass=loops))
+
+    def run(fn, args, n_ph):
+        y, y_lo, t0, pp, uu = args
+        hi, lo = torch.empty_like(y), torch.empty_like(y)
+        err = fn(y.data_ptr(), y_lo.data_ptr(), t0.data_ptr(), pp.data_ptr(),
+                 uu.data_ptr(), hi.data_ptr(), lo.data_ptr(), y.shape[0], n_ph,
+                 N_SUB, *split_h(DT, N_SUB),
+                 torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"launch failed: {err}")
+        return hi, lo
+
+    times = [dict() for _ in builds]
+    same = [dict() for _ in builds]
+    for preset in ("10", "50"):
+        n_ph, *args = df_inputs(preset, N_ENVS, 0, "cuda")
+        ref = run(libs[0], args, n_ph)
+        for i, fn in enumerate(libs):
+            hi, lo = run(fn, args, n_ph)
+            same[i][preset] = bool(torch.equal(hi, ref[0])
+                                   and torch.equal(lo, ref[1]))
+        order = list(range(len(libs)))
+        for rnd in (order, order[::-1]):
+            for i in rnd:
+                times[i].setdefault(preset, []).append(_time_ms(
+                    lambda: run(libs[i], args, n_ph), 10, "cuda"))
+    for (name, _, defs), inf, ms, eq in zip(builds, info, times, same):
+        print(json.dumps({"card": card, "build": name, "defines": defs,
+                          "n_envs": N_ENVS, "n_sub": N_SUB,
+                          "ms_per_launch": ms, "bitwise_equal_to_first": eq,
+                          **inf}), flush=True)
+    shutil.rmtree(tmp, ignore_errors=True)
+    return 0
 
 
 def main() -> int:
@@ -42,6 +160,8 @@ def main() -> int:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
+    if "--k3" in sys.argv[1:]:
+        return profile_k3(card, [a for a in sys.argv[1:] if a != "--k3"])
     path = ("fleet" if "--fleet" in sys.argv[1:]
             else "df" if "--df" in sys.argv[1:] else "single")
     kw = dict(dtype=torch.float32, n_sub=N_SUB, device="cuda")

@@ -124,12 +124,21 @@ __device__ __forceinline__ df reduce(df a, float k, double c) {
 }
 
 // sum_i (-1)^(i+1) c_i r2^(i+1) by Horner over the 6 coefficients c_1..c_6
-// (1/3!, 1/5!, ... for sin; 1/2!, 1/4!, ... for cos), highest term first
-__device__ __forceinline__ df horner_even(df r2, const double (&c)[6]) {
+// of sin (1/3!, 1/5!, ...) or, if `use_cos`, of cos (1/2!, 1/4!, ...), highest
+// term first. Where `use_cos` differs from lane to lane (window_df.cu) each
+// coefficient is a select between two constants.
+__device__ __forceinline__ df horner_even(df r2, bool use_cos) {
+  constexpr double SIN_C[6] = {1.0 / 6.0, 1.0 / 120.0, 1.0 / 5040.0,
+                               1.0 / 362880.0, 1.0 / 39916800.0,
+                               1.0 / 6227020800.0};
+  constexpr double COS_C[6] = {1.0 / 2.0, 1.0 / 24.0, 1.0 / 720.0,
+                               1.0 / 40320.0, 1.0 / 3628800.0,
+                               1.0 / 479001600.0};
   df acc = lit<df>(0.0);
 #pragma unroll
   for (int i = 5; i >= 0; --i) {
-    const df ci = lit<df>(i % 2 == 0 ? -c[i] : c[i]);
+    const double sgn = i % 2 == 0 ? -1.0 : 1.0;
+    const df ci = use_cos ? lit<df>(sgn * COS_C[i]) : lit<df>(sgn * SIN_C[i]);
     acc = (acc + ci) * r2;
   }
   return acc;
@@ -137,19 +146,30 @@ __device__ __forceinline__ df horner_even(df r2, const double (&c)[6]) {
 
 // sin and cos of a DF: pi/2 reduction (k half to even, as rintf), Taylor,
 // quadrant q = k mod 4 (floor mod) swaps and negates. Valid for |a| up to
-// ~2^11 rad.
-__device__ __forceinline__ void sincos_t(df a, df* s_out, df* c_out) {
-  constexpr double SIN_C[6] = {1.0 / 6.0, 1.0 / 120.0, 1.0 / 5040.0,
-                               1.0 / 362880.0, 1.0 / 39916800.0,
-                               1.0 / 6227020800.0};
-  constexpr double COS_C[6] = {1.0 / 2.0, 1.0 / 24.0, 1.0 / 720.0,
-                               1.0 / 40320.0, 1.0 / 3628800.0,
-                               1.0 / 479001600.0};
-  const float k = rintf(__fmul_rn(a.hi, lit<float>(2.0 / 3.141592653589793)));
-  const df r = reduce(a, k, 1.5707963267948966);
-  const df r2 = r * r;
-  const df s = r * (horner_even(r2, SIN_C) + lit<df>(1.0));
-  const df c = horner_even(r2, COS_C) + lit<df>(1.0);
+// ~2^11 rad. In three pieces, so that the two Taylor polynomials can run on
+// two lanes (window_df.cu).
+struct SinCosArg {
+  float k;    // the multiple of pi/2
+  df r, r2;   // the reduced argument and its square
+};
+
+__device__ __forceinline__ SinCosArg sincos_reduce(df a) {
+  SinCosArg g;
+  g.k = rintf(__fmul_rn(a.hi, lit<float>(2.0 / 3.141592653589793)));
+  g.r = reduce(a, g.k, 1.5707963267948966);
+  g.r2 = g.r * g.r;
+  return g;
+}
+
+// the Taylor sin (use_cos = false) or cos of the reduced argument
+__device__ __forceinline__ df sincos_half(const SinCosArg& g, bool use_cos) {
+  const df x = horner_even(g.r2, use_cos) + lit<df>(1.0);
+  const df s = g.r * x;
+  return use_cos ? x : s;
+}
+
+__device__ __forceinline__ void sincos_finish(float k, df s, df c, df* s_out,
+                                              df* c_out) {
   const float q = __fsub_rn(k, __fmul_rn(4.0f, floorf(__fmul_rn(k, 0.25f))));
   const bool swap = q == 1.0f || q == 3.0f;
   df sin_o = swap ? c : s;
@@ -158,6 +178,12 @@ __device__ __forceinline__ void sincos_t(df a, df* s_out, df* c_out) {
   if (q == 1.0f || q == 2.0f) cos_o = -cos_o;
   *s_out = sin_o;
   *c_out = cos_o;
+}
+
+__device__ __forceinline__ void sincos_t(df a, df* s_out, df* c_out) {
+  const SinCosArg g = sincos_reduce(a);
+  sincos_finish(g.k, sincos_half(g, false), sincos_half(g, true), s_out,
+                c_out);
 }
 
 __device__ __forceinline__ df exp_t(df a) {

@@ -14,6 +14,10 @@
 // The single-DER kernel (window.cu) calls the pair with the DER's own
 // injection; the fleet kernel (fleet_window.cu) calls pcc_voltage with the
 // mean injection of the units on the feeder, then rhs_given_v per unit.
+// Both are written as calls to small pieces (one equation of rhs_core
+// each), most of them one component of a complex quantity under a role
+// (Re, Im, or a run-time Lane): the df32 kernel's two-lane team
+// (window_df.cu) calls the same pieces, each lane for its own component.
 //
 // Arithmetic follows rhs_core operation by operation, in the same order.
 // In float, nvcc contracts a*b+c into FMAs, so results are not bitwise equal
@@ -154,6 +158,41 @@ __device__ __forceinline__ void load_feeder(Feeder<T, N>& f, const T (&ak_re)[N]
   }
 }
 
+// --- components ---------------------------------------------------------------
+// The RHS is arithmetic on complex (re, im) pairs. A piece that computes one
+// component takes a role: Re or Im, fixed at compile time (one thread computes
+// both, as rhs_given_v does), or Lane, the role of a lane of a two-lane team
+// known at run time (window_df.cu: lane 0 computes re, lane 1 im).
+struct Re {};
+struct Im {};
+struct Lane {
+  bool im;
+};
+
+template <class T>
+__device__ __forceinline__ T pick(Re, T a, T) { return a; }
+template <class T>
+__device__ __forceinline__ T pick(Im, T, T b) { return b; }
+template <class T>
+__device__ __forceinline__ T pick(Lane r, T a, T b) { return r.im ? b : a; }
+
+// component of a*b
+template <class T>
+__device__ __forceinline__ T cmul(Re, T ar, T ai, T br, T bi) {
+  return ar * br - ai * bi;
+}
+template <class T>
+__device__ __forceinline__ T cmul(Im, T ar, T ai, T br, T bi) {
+  return ar * bi + ai * br;
+}
+// Im as Re of a*(bi - j br): ar*bi - ai*(-br) equals ar*bi + ai*br bit for
+// bit in df (round-to-nearest is sign-symmetric, a - b is a + (-b)), so both
+// lanes run the same instructions on their own operands.
+template <class T>
+__device__ __forceinline__ T cmul(Lane r, T ar, T ai, T br, T bi) {
+  return cmul(Re{}, ar, ai, pick(r, br, bi), pick(r, bi, -br));
+}
+
 // rhs_core.soft_limit_scale with the hoisted reciprocal: r^16 by squaring
 template <class T>
 __device__ __forceinline__ T soft_limit_scale(T mag, T inv_lim) {
@@ -164,12 +203,18 @@ __device__ __forceinline__ T soft_limit_scale(T mag, T inv_lim) {
   return pow_sat(lit<T>(1.0) + r8 * r8);
 }
 
-// rhs_core.aw_gate with the hoisted reciprocal
+// rhs_core.aw_gate with the hoisted reciprocal, in its three steps
 template <class T>
-__device__ __forceinline__ T aw_gate(T mag, T inv_lim) {
+__device__ __forceinline__ T aw_exponent(T mag, T inv_lim) {
   T r = mag * inv_lim;
   T z = lit<T>(AW_KAPPA) * (lit<T>(1.0) - r);
-  return lit<T>(1.0) / (lit<T>(1.0) + exp_t(-min_t(z, lit<T>(40.0))));
+  return -min_t(z, lit<T>(40.0));
+}
+template <class T>
+__device__ __forceinline__ T aw_denominator(T e) { return lit<T>(1.0) + e; }
+template <class T>
+__device__ __forceinline__ T aw_gate(T mag, T inv_lim) {
+  return lit<T>(1.0) / aw_denominator(exp_t(aw_exponent(mag, inv_lim)));
 }
 
 // rhs_core.grid_rot: e^{j(phi_g + w_base*dw_g*(t - t_g))}
@@ -178,6 +223,34 @@ __device__ __forceinline__ void grid_rot(T t, const Feeder<T, N>& f, T& re,
                                          T& im) {
   T phi = f.phi_g + f.wdw * (t - f.t_g);
   sincos_t(phi, &im, &re);
+}
+
+// --- pieces of the PCC voltage (rhs_core.pcc_voltage) ------------------------
+// component r of the grid source at phase k (three-phase): the rotated
+// positive-sequence source vgp = rot * v_g on the phase's rotator, plus the
+// negative-sequence source
+template <class T, int N, class R>
+__device__ __forceinline__ T grid_source(R r, int k, T vgp_re, T vgp_im,
+                                         T rot_re, T rot_im,
+                                         const Feeder<T, N>& f,
+                                         const T (&ak_re)[N],
+                                         const T (&ak_im)[N]) {
+  return cmul(r, vgp_re, vgp_im, ak_re[k], ak_im[k])
+         + cmul(r, rot_re, rot_im, f.v2_re[k], f.v2_im[k]);
+}
+
+// component r of the current into the PCC node: source through y_g plus ii
+template <class T, int N, class R>
+__device__ __forceinline__ T pcc_sum(R r, T vg_re, T vg_im, T ii,
+                                     const Feeder<T, N>& f) {
+  return cmul(r, vg_re, vg_im, f.yg_re, f.yg_im) + ii;
+}
+
+// component r of the PCC voltage: that current through 1/y_tot
+template <class T, int N, class R>
+__device__ __forceinline__ T pcc_node(R r, T s_re, T s_im,
+                                      const Feeder<T, N>& f) {
+  return cmul(r, s_re, s_im, f.iyt_re, f.iyt_im);
 }
 
 // rhs_core.pcc_voltage(i_inj, ...) with the grid phasor `rot` given
@@ -189,27 +262,160 @@ __device__ __forceinline__ void pcc_voltage(
   const T vgp_re = rot_re * f.v_g, vgp_im = rot_im * f.v_g;
 #pragma unroll
   for (int k = 0; k < N; ++k) {
-    T vg_re, vg_im;
-    if (N == 1) {
-      vg_re = vgp_re;
-      vg_im = vgp_im;
-    } else {
-      T a_re = vgp_re * ak_re[k] - vgp_im * ak_im[k];
-      T a_im = vgp_re * ak_im[k] + vgp_im * ak_re[k];
-      T b_re = rot_re * f.v2_re[k] - rot_im * f.v2_im[k];
-      T b_im = rot_re * f.v2_im[k] + rot_im * f.v2_re[k];
-      vg_re = a_re + b_re;
-      vg_im = a_im + b_im;
+    T vg_re = vgp_re, vg_im = vgp_im;
+    if (N != 1) {
+      vg_re = grid_source(Re{}, k, vgp_re, vgp_im, rot_re, rot_im, f, ak_re,
+                          ak_im);
+      vg_im = grid_source(Im{}, k, vgp_re, vgp_im, rot_re, rot_im, f, ak_re,
+                          ak_im);
     }
-    T s_re = (vg_re * f.yg_re - vg_im * f.yg_im) + ii_re[k];
-    T s_im = (vg_re * f.yg_im + vg_im * f.yg_re) + ii_im[k];
-    v_re[k] = s_re * f.iyt_re - s_im * f.iyt_im;
-    v_im[k] = s_re * f.iyt_im + s_im * f.iyt_re;
+    const T s_re = pcc_sum(Re{}, vg_re, vg_im, ii_re[k], f);
+    const T s_im = pcc_sum(Im{}, vg_re, vg_im, ii_im[k], f);
+    v_re[k] = pcc_node(Re{}, s_re, s_im, f);
+    v_im[k] = pcc_node(Im{}, s_re, s_im, f);
   }
 }
 
+// --- pieces of rhs_given_v ------------------------------------------------------
+// component r of phase k's term of the positive-sequence PCC voltage (the
+// phase voltage rotated back; their sum over phases / N)
+template <class T, int N, class R>
+__device__ __forceinline__ T vpos_term(R r, int k, const T (&v_re)[N],
+                                       const T (&v_im)[N],
+                                       const Unit<T, N>& w) {
+  return cmul(r, v_re[k], v_im[k], w.ak_re[k], -w.ak_im[k]);
+}
+
+// the floored DC-link voltage and the modulation gain kv * vdc_pos
+template <class T, int N>
+__device__ __forceinline__ T dc_gain(const Unit<T, N>& w, T vdc, T& vdc_pos) {
+  vdc_pos = max_t(vdc, w.vdc_floor);
+  return w.kv * vdc_pos;
+}
+
+// one component of the GCC's modulation command (filter state uf, integrator xg)
+template <class T, int N>
+__device__ __forceinline__ T modulation(const Unit<T, N>& w, T uf, T xg) {
+  return uf * w.kp_gcc + xg;
+}
+
+// mag = |(a, b)| (floored by 1e-30 under the root) and its soft-limit scale
+template <class T>
+__device__ __forceinline__ T limit(T a, T b, T inv_lim, T& mag) {
+  mag = sqrt_t(a * a + b * b + lit<T>(1e-30));
+  return soft_limit_scale(mag, inv_lim);
+}
+
+// one component of the converter's terminal voltage
+template <class T>
+__device__ __forceinline__ T terminal(T m, T s, T kvv) { return (m * s) * kvv; }
+
+// the PLL's q-axis voltage
+template <class T>
+__device__ __forceinline__ T pll_error(T vp_re, T vp_im, T sth, T cth) {
+  return vp_re * (-sth) + vp_im * cth;
+}
+
+// component r of a conj(b): Re the real power, Im the reactive (summed over
+// phases, then / N)
+template <class T, class R>
+__device__ __forceinline__ T power_term(R r, T a_re, T a_im, T b_re, T b_im) {
+  return cmul(r, a_re, a_im, b_re, -b_im);
+}
+
+// pv_power with the hoisted iph, gamma/T and 1/S: the diode's exponent
+// (vdc_v: vdc in volts), then the array's per-unit power from its exp
+template <class T, int N>
+__device__ __forceinline__ T pv_exponent(const Unit<T, N>& w, T vdc, T& vdc_v) {
+  vdc_v = vdc * w.vdc_base;
+  return w.g_over_t * vdc_v;
+}
+template <class T, int N>
+__device__ __forceinline__ T pv_power(const Unit<T, N>& w, T e, T vdc_v) {
+  T i_arr = w.np_par * (w.iph - w.irs * (e - lit<T>(1.0)));
+  i_arr = max_t(i_arr, lit<T>(0.0));
+  return (i_arr * vdc_v) * w.inv_s;
+}
+
+// the DC-voltage loop's error and the reactive loop's
+template <class T, int N>
+__device__ __forceinline__ T dc_error(const Unit<T, N>& w, T vdc, T p_pcc) {
+  return w.one_m_c * (vdc - w.vdc_ref) + w.c * (w.p_ref - p_pcc);
+}
+template <class T, int N>
+__device__ __forceinline__ T q_error(const Unit<T, N>& w, T q_pcc) {
+  return w.q_ref - q_pcc;
+}
+
+// component r of the current command before the limiter: id (Re) from the DC
+// loop's error and integrator, iq (Im) from the reactive loop's
+template <class T, int N, class R>
+__device__ __forceinline__ T current_raw(R r, const Unit<T, N>& w, T e, T x) {
+  const T v = pick(r, w.kp_dc, w.kp_q) * e + x;
+  return pick(r, v, -v);
+}
+
+// component r of phase k's current reference: the dq reference idq rotated
+// to the phase, gated by en
+template <class T, int N, class R>
+__device__ __forceinline__ T current_ref(R r, int k, T idq_re, T idq_im,
+                                         const Unit<T, N>& w) {
+  if (N == 1) return pick(r, idq_re, idq_im) * w.en;
+  return cmul(r, idq_re, idq_im, w.ak_re[k], w.ak_im[k]) * w.en;
+}
+
+// one component of a phase's rates: the filter current i's (dc: its
+// voltage balance, i_x = -i_im for re, i_re for im: the w_base
+// cross-coupling), the GCC integrator's and the filter state uf's
+template <class T, int N>
+__device__ __forceinline__ T phase_dc(T i, T i_x, T vt, T v,
+                                      const Unit<T, N>& w) {
+  return ((vt - v) - i * w.rf) * w.wb_lf - i_x * w.wb;
+}
+template <class T, int N>
+__device__ __forceinline__ T current_rate(T dc, T i, const Unit<T, N>& w) {
+  return dc * w.conn + i * w.dis;
+}
+template <class T, int N>
+__device__ __forceinline__ T gcc_rate(T uf, const Unit<T, N>& w) {
+  return uf * w.ki_gcc_en;
+}
+template <class T, int N>
+__device__ __forceinline__ T filter_rate(T iref, T i, T uf,
+                                         const Unit<T, N>& w) {
+  return ((iref - i) - uf) * w.w_f;
+}
+
+// the DC link's rate: num / den + the const-Vdc pin
+template <class T, int N>
+__device__ __forceinline__ T dc_link_num(const Unit<T, N>& w, T p_pv, T p_inv) {
+  return w.one_m_c * (p_pv - w.conn * p_inv);
+}
+template <class T, int N>
+__device__ __forceinline__ T dc_link_den(const Unit<T, N>& w, T vdc_pos) {
+  return w.tau_dc * vdc_pos;
+}
+template <class T, int N>
+__device__ __forceinline__ T dc_link_rate(const Unit<T, N>& w, T q, T vdc) {
+  return q + w.c_pin * (w.vdc_ref - vdc);
+}
+
+// the DC (Re) or reactive (Im) loop's integrator rate
+template <class T, int N, class R>
+__device__ __forceinline__ T loop_rate(R r, const Unit<T, N>& w, T e, T aw) {
+  return (pick(r, w.ki_dc, w.ki_q) * e) * aw;
+}
+
+// the PLL's rates: its integrator and the angle
+template <class T, int N>
+__device__ __forceinline__ void pll_rates(const Unit<T, N>& w, T v_q, T xpll,
+                                          T& d_x, T& d_theta) {
+  d_x = w.ki_pll * v_q;
+  d_theta = w.wb * (w.kp_pll * v_q + xpll);
+}
+
 // rhs_core.rhs_given_v: algebra_given_v and rhs_from_algebra of one DER at
-// the PCC voltage v.
+// the PCC voltage v, both components of every piece on this thread.
 template <class T, int N>
 __device__ __forceinline__ void rhs_given_v(const T (&y)[6 * N + 5],
                                             const T (&v_re)[N],
@@ -237,36 +443,36 @@ __device__ __forceinline__ void rhs_given_v(const T (&y)[6 * N + 5],
     T sr = lit<T>(0.0), si = lit<T>(0.0);
 #pragma unroll
     for (int k = 0; k < N; ++k) {
-      sr = sr + (v_re[k] * w.ak_re[k] - v_im[k] * (-w.ak_im[k]));
-      si = si + (v_re[k] * (-w.ak_im[k]) + v_im[k] * w.ak_re[k]);
+      sr = sr + vpos_term(Re{}, k, v_re, v_im, w);
+      si = si + vpos_term(Im{}, k, v_re, v_im, w);
     }
     vpos_re = sr / lit<T>(N);
     vpos_im = si / lit<T>(N);
   }
 
-  const T vdc_pos = max_t(vdc, w.vdc_floor);
-  const T kvv = w.kv * vdc_pos;
+  T vdc_pos;
+  const T kvv = dc_gain(w, vdc, vdc_pos);
   T vt_re[N], vt_im[N];
 #pragma unroll
   for (int k = 0; k < N; ++k) {
-    T mr = y[4 * N + k] * w.kp_gcc + y[2 * N + k];
-    T mi = y[5 * N + k] * w.kp_gcc + y[3 * N + k];
-    T m_mag = sqrt_t(mr * mr + mi * mi + lit<T>(1e-30));
-    T s = soft_limit_scale(m_mag, w.inv_m_max);
-    vt_re[k] = (mr * s) * kvv;
-    vt_im[k] = (mi * s) * kvv;
+    const T mr = modulation(w, y[4 * N + k], y[2 * N + k]);
+    const T mi = modulation(w, y[5 * N + k], y[3 * N + k]);
+    T m_mag;
+    const T s = limit(mr, mi, w.inv_m_max, m_mag);
+    vt_re[k] = terminal(mr, s, kvv);
+    vt_im[k] = terminal(mi, s, kvv);
   }
 
   T sth, cth;
   sincos_t(theta, &sth, &cth);
-  const T v_q = vpos_re * (-sth) + vpos_im * cth;
+  const T v_q = pll_error(vpos_re, vpos_im, sth, cth);
 
   T p_inv = lit<T>(0.0), p_pcc = lit<T>(0.0), q_pcc = lit<T>(0.0);
 #pragma unroll
   for (int k = 0; k < N; ++k) {
-    p_inv = p_inv + (vt_re[k] * y[k] - vt_im[k] * (-y[N + k]));
-    p_pcc = p_pcc + (v_re[k] * ii_re[k] - v_im[k] * (-ii_im[k]));
-    q_pcc = q_pcc + (v_re[k] * (-ii_im[k]) + v_im[k] * ii_re[k]);
+    p_inv = p_inv + power_term(Re{}, vt_re[k], vt_im[k], y[k], y[N + k]);
+    p_pcc = p_pcc + power_term(Re{}, v_re[k], v_im[k], ii_re[k], ii_im[k]);
+    q_pcc = q_pcc + power_term(Im{}, v_re[k], v_im[k], ii_re[k], ii_im[k]);
   }
   if (N != 1) {
     p_inv = p_inv / lit<T>(N);
@@ -274,23 +480,20 @@ __device__ __forceinline__ void rhs_given_v(const T (&y)[6 * N + 5],
     q_pcc = q_pcc / lit<T>(N);
   }
 
-  // pv_power with the hoisted iph, gamma/T and 1/S
-  const T vdc_v = vdc * w.vdc_base;
-  const T ex = w.g_over_t * vdc_v;
-  T i_arr = w.np_par * (w.iph - w.irs * (exp_t(ex) - lit<T>(1.0)));
-  i_arr = max_t(i_arr, lit<T>(0.0));
-  const T p_pv = (i_arr * vdc_v) * w.inv_s;
+  T vdc_v;
+  const T ex = pv_exponent(w, vdc, vdc_v);
+  const T p_pv = pv_power(w, exp_t(ex), vdc_v);
 
-  const T e_dc = w.one_m_c * (vdc - w.vdc_ref) + w.c * (w.p_ref - p_pcc);
-  const T id_raw = w.kp_dc * e_dc + xdc;
-  const T e_q = w.q_ref - q_pcc;
-  const T iq_raw = -(w.kp_q * e_q + xq);
-  const T mag = sqrt_t(id_raw * id_raw + iq_raw * iq_raw + lit<T>(1e-30));
-  const T s_lim = soft_limit_scale(mag, w.inv_i_max);
+  const T e_dc = dc_error(w, vdc, p_pcc);
+  const T id_raw = current_raw(Re{}, w, e_dc, xdc);
+  const T e_q = q_error(w, q_pcc);
+  const T iq_raw = current_raw(Im{}, w, e_q, xq);
+  T mag;
+  const T s_lim = limit(id_raw, iq_raw, w.inv_i_max, mag);
   const T id_ref = id_raw * s_lim;
   const T iq_ref = iq_raw * s_lim;
-  const T idq_re = id_ref * cth - iq_ref * sth;
-  const T idq_im = id_ref * sth + iq_ref * cth;
+  const T idq_re = cmul(Re{}, id_ref, iq_ref, cth, sth);
+  const T idq_im = cmul(Im{}, id_ref, iq_ref, cth, sth);
   const T aw = w.en * aw_gate(mag, w.inv_i_max);
 
   // --- rhs_from_algebra ----------------------------------------------------
@@ -298,29 +501,22 @@ __device__ __forceinline__ void rhs_given_v(const T (&y)[6 * N + 5],
   for (int k = 0; k < N; ++k) {
     const T i_re = y[k], i_im = y[N + k];
     const T uf_re = y[4 * N + k], uf_im = y[5 * N + k];
-    T iref_re, iref_im;
-    if (N == 1) {
-      iref_re = idq_re * w.en;
-      iref_im = idq_im * w.en;
-    } else {
-      iref_re = (idq_re * w.ak_re[k] - idq_im * w.ak_im[k]) * w.en;
-      iref_im = (idq_re * w.ak_im[k] + idq_im * w.ak_re[k]) * w.en;
-    }
-    T dc_re = ((vt_re[k] - v_re[k]) - i_re * w.rf) * w.wb_lf - (-i_im) * w.wb;
-    T dc_im = ((vt_im[k] - v_im[k]) - i_im * w.rf) * w.wb_lf - i_re * w.wb;
-    dy[k] = dc_re * w.conn + i_re * w.dis;
-    dy[N + k] = dc_im * w.conn + i_im * w.dis;
-    dy[2 * N + k] = uf_re * w.ki_gcc_en;
-    dy[3 * N + k] = uf_im * w.ki_gcc_en;
-    dy[4 * N + k] = ((iref_re - i_re) - uf_re) * w.w_f;
-    dy[5 * N + k] = ((iref_im - i_im) - uf_im) * w.w_f;
+    const T iref_re = current_ref(Re{}, k, idq_re, idq_im, w);
+    const T iref_im = current_ref(Im{}, k, idq_re, idq_im, w);
+    const T dc_re = phase_dc(i_re, -i_im, vt_re[k], v_re[k], w);
+    const T dc_im = phase_dc(i_im, i_re, vt_im[k], v_im[k], w);
+    dy[k] = current_rate(dc_re, i_re, w);
+    dy[N + k] = current_rate(dc_im, i_im, w);
+    dy[2 * N + k] = gcc_rate(uf_re, w);
+    dy[3 * N + k] = gcc_rate(uf_im, w);
+    dy[4 * N + k] = filter_rate(iref_re, i_re, uf_re, w);
+    dy[5 * N + k] = filter_rate(iref_im, i_im, uf_im, w);
   }
-  dy[6 * N + 0] = (w.one_m_c * (p_pv - w.conn * p_inv)) / (w.tau_dc * vdc_pos)
-                  + w.c_pin * (w.vdc_ref - vdc);
-  dy[6 * N + 1] = (w.ki_dc * e_dc) * aw;
-  dy[6 * N + 2] = (w.ki_q * e_q) * aw;
-  dy[6 * N + 3] = w.ki_pll * v_q;
-  dy[6 * N + 4] = w.wb * (w.kp_pll * v_q + xpll);
+  dy[6 * N + 0] = dc_link_rate(
+      w, dc_link_num(w, p_pv, p_inv) / dc_link_den(w, vdc_pos), vdc);
+  dy[6 * N + 1] = loop_rate(Re{}, w, e_dc, aw);
+  dy[6 * N + 2] = loop_rate(Im{}, w, e_q, aw);
+  pll_rates(w, v_q, xpll, dy[6 * N + 3], dy[6 * N + 4]);
 }
 
 // One float32 control window of n_sub Kahan-compensated RK4 substeps of
