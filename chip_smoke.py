@@ -758,6 +758,18 @@ def run_df_main(device, card, n_envs=N_ENVS, n_sub=N_SUB, warm=WARM_STEPS,
                 preset50_ms=k3_50_ms)
 
 
+def kernel_name(mangled: str) -> str:
+    """`window_kernel<3>` and the like for a window kernel's mangled name;
+    any other name as it is."""
+    import re
+
+    k = re.search(r"((?:fleet_)?window(?:_df)?_kernel)I((?:Li\d+E)+)E", mangled)
+    if not k:
+        return mangled
+    args = re.findall(r"Li(\d+)E", k.group(2))
+    return f"{k.group(1)}<{','.join(args)}>"
+
+
 def ptxas_summary(report: str) -> dict:
     """Registers and spill bytes per kernel from `nvcc -Xptxas -v` output."""
     import re
@@ -767,13 +779,7 @@ def ptxas_summary(report: str) -> dict:
         hit = re.search(r"(?:entry function|Function properties for) '?(\S+?)'?"
                         r"(?: for|$)", ln)
         if hit:
-            name = hit.group(1)
-            k = re.search(r"((?:fleet_)?window(?:_df)?_kernel)I((?:Li\d+E)+)E",
-                          name)
-            if k:
-                args = re.findall(r"Li(\d+)E", k.group(2))
-                name = f"{k.group(1)}<{','.join(args)}>"
-            cur = name
+            cur = kernel_name(hit.group(1))
             out.setdefault(cur, {})
             continue
         if cur is None:

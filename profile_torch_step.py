@@ -4,58 +4,61 @@
     python3 profile_torch_step.py            # the single-DER main path
     python3 profile_torch_step.py --fleet    # the fleet (BASELINE config 5)
     python3 profile_torch_step.py --df       # the df32 tier (make_batch_fns_df)
-    python3 profile_torch_step.py --k3 [CSRC_DIR ...]
+    python3 profile_torch_step.py --sass     # registers and SASS per kernel
+    python3 profile_torch_step.py --outputs FILE [--against OTHER]
 
 Runs the main path (preset 10, f32, n_sub=64, 32768 envs, zero-action policy,
 autoreset), with ``--fleet`` the fleet path (preset 10, f32, n_sub=64,
 4096 envs x 16 units, aggregate mode, zero-action policy), or with ``--df``
-the main path's config through the df32 tier (state carried as (hi, lo)),
-under `torch.profiler` for 20 steps after 10 warm-up steps, and prints one JSON
-line: wall ms per step, device-busy ms per step (sum of
-kernel times; one stream, so kernels do not overlap), the device's idle
-share, kernel launches per step, and the kernels that take the most device
-time.
+the main path's config through the df32 tier (state carried as (hi, lo)):
+10 warm-up steps, 200 steps timed on the host clock without the profiler,
+then 20 steps under `torch.profiler`. Prints one JSON line: untraced ms per
+step and env-steps/s, the traced wall ms per step, device-busy ms per step
+(sum of kernel times; one stream, so kernels do not overlap), the device's
+idle share of the traced step, kernel launches per step, and the kernels
+that take the most device time.
 
-``--k3`` times the df32 window kernel alone instead, across builds of
-``window_df.cu``: this checkout's sources with their default lanes per env,
-the same sources with the other team size for each model (-DTEAM_1PH,
--DTEAM_3PH), and each CSRC_DIR given (another version's
-``pvderx_torch/ops/csrc``, e.g. unpacked with ``git archive``). Each build
-goes to a temporary directory (one nvcc per build, in parallel). At presets
-10 and 50, 32768 envs, n_sub=64, on ``chip_smoke.df_inputs``, it prints one
-JSON line per build: registers and spills (ptxas), the substep loop's SASS
-size (cuobjdump), ms per launch (CUDA events, two rounds in turns: forward,
-then backward) and whether the outputs equal the first build's bit for bit.
+``--sass`` builds the kernel library if needed and prints one JSON line per
+window kernel: registers and spill bytes (ptxas) and, from `cuobjdump -sass`
+on the library, its instruction count, the static size of its substep loop
+and of the stage loop inside it, and an estimate of the instructions one
+substep runs.
+
+``--outputs FILE`` runs each window kernel (K1, K2, K3) once on the seeded
+inputs of `chip_smoke.py`'s kernel phases (K1 and K3 on its six window
+cases, K2 on its seven fleet cases, at n_sub=64) and saves the outputs to
+FILE (.npz). With ``--against OTHER`` (a file saved the same way, e.g. by
+another checkout) it prints, per kernel and case, the max abs difference
+and whether the two are equal bit for bit.
 """
 from __future__ import annotations
 
-import ctypes
+import argparse
 import json
 import os
 import re
-import shutil
 import subprocess
 import sys
-import tempfile
 import time
-from pathlib import Path
 
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 
-N_ENVS, N_SUB, STEPS, WARM = 32768, 64, 20, 10
+N_ENVS, N_SUB, STEPS, WARM, TIMED = 32768, 64, 20, 10, 200
 FLEET_ENVS, FLEET_M = 4096, 16
 
 
 def sass_loops(sass: str) -> dict:
     """Per kernel of a `cuobjdump -sass` listing: its instruction count, the
     static size of its outermost loop (the largest backward branch: the
-    substep loop) and of the largest loop inside that one (the stage loop,
-    0 if the stages are written out), and an estimate of the instructions
-    one substep runs: outer + 3 * inner (the stage body runs four times;
-    this counts every update variant on each pass, so it is a little high)."""
+    substep loop) and of the largest loop inside that one (the stage loop
+    where the stages are looped; where they are written out, as in K1 and
+    K2, a small loop of the sin/cos argument reduction, or 0), and an
+    estimate of the instructions one substep runs: outer + 3 * inner (the
+    stage body runs four times; this counts every update variant on each
+    pass, so it is a little high)."""
     funcs, cur = {}, None
     for ln in sass.splitlines():
         hit = re.match(r"\s*Function : (\S+)", ln)
@@ -82,74 +85,67 @@ def sass_loops(sass: str) -> dict:
     return out
 
 
-def profile_k3(card: str, dirs: list[str]) -> int:
-    """The --k3 mode (see the module docstring)."""
-    from chip_smoke import DT, _time_ms, df_inputs, ptxas_summary
+def report_sass(card: str) -> int:
+    """The --sass mode (see the module docstring)."""
+    from chip_smoke import kernel_name, ptxas_summary
     from pvderx_torch.ops import _build
-    from pvderx_torch.ops.dualfloat import split_h
 
-    here = _build.CSRC
-    builds = [("this", here, []),
-              ("this_team_swapped", here, ["-DTEAM_1PH=2", "-DTEAM_3PH=1"])]
-    builds += [(f"dir{i}:{d}", Path(d), []) for i, d in enumerate(dirs)]
-    tmp = Path(tempfile.mkdtemp(prefix="k3_"))
-    procs = []
-    for i, (_, src, defs) in enumerate(builds):
-        so = tmp / f"k3_{i}.so"
-        procs.append((so, subprocess.Popen(
-            [_build.nvcc(), *_build.NVCC_FLAGS, *defs, "-shared", "-o",
-             str(so), str(src / "window_df.cu")], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True)))
+    so = _build.build()
+    regs = ptxas_summary(_build.ptxas_report())
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
-    libs, info = [], []
-    for (name, _, _), (so, proc) in zip(builds, procs):
-        report = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {name}:\n{report}")
-        lib = ctypes.CDLL(str(so))
-        fn = lib.pvderx_rk4_window_df
-        fn.argtypes, fn.restype = _build.ENTRIES["pvderx_rk4_window_df"]
-        sass = subprocess.run([cuobjdump, "-sass", str(so)], capture_output=True,
-                              text=True, check=True).stdout
-        loops = {k: v for k, v in sass_loops(sass).items() if "window_df" in k}
-        libs.append(fn)
-        info.append(dict(ptxas=ptxas_summary(report), sass=loops))
+    sass = subprocess.run([cuobjdump, "-sass", str(so)], capture_output=True,
+                          text=True, check=True).stdout
+    for name, loops in sass_loops(sass).items():
+        short = kernel_name(name)
+        print(json.dumps({"card": card, "kernel": short, **regs.get(short, {}),
+                          **loops}), flush=True)
+    return 0
 
-    def run(fn, args, n_ph):
-        y, y_lo, t0, pp, uu = args
-        hi, lo = torch.empty_like(y), torch.empty_like(y)
-        err = fn(y.data_ptr(), y_lo.data_ptr(), t0.data_ptr(), pp.data_ptr(),
-                 uu.data_ptr(), hi.data_ptr(), lo.data_ptr(), y.shape[0], n_ph,
-                 N_SUB, *split_h(DT, N_SUB),
-                 torch.cuda.current_stream().cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"launch failed: {err}")
-        return hi, lo
 
-    times = [dict() for _ in builds]
-    same = [dict() for _ in builds]
-    for preset in ("10", "50"):
-        n_ph, *args = df_inputs(preset, N_ENVS, 0, "cuda")
-        ref = run(libs[0], args, n_ph)
-        for i, fn in enumerate(libs):
-            hi, lo = run(fn, args, n_ph)
-            same[i][preset] = bool(torch.equal(hi, ref[0])
-                                   and torch.equal(lo, ref[1]))
-        order = list(range(len(libs)))
-        for rnd in (order, order[::-1]):
-            for i in rnd:
-                times[i].setdefault(preset, []).append(_time_ms(
-                    lambda: run(libs[i], args, n_ph), 10, "cuda"))
-    for (name, _, defs), inf, ms, eq in zip(builds, info, times, same):
-        print(json.dumps({"card": card, "build": name, "defines": defs,
-                          "n_envs": N_ENVS, "n_sub": N_SUB,
-                          "ms_per_launch": ms, "bitwise_equal_to_first": eq,
-                          **inf}), flush=True)
-    shutil.rmtree(tmp, ignore_errors=True)
+def kernel_outputs(path: str, against: str | None) -> int:
+    """The --outputs mode (see the module docstring)."""
+    import numpy as np
+    from chip_smoke import (DT, FLEET_CASES, KERNEL_CASES, df_inputs,
+                            fleet_inputs, window_inputs)
+    from pvderx_torch.ops.dualfloat import rk4_window_batch_df
+    from pvderx_torch.ops.window import rk4_fleet_window_batch, rk4_window_batch
+
+    out = {}
+    for i, (name, preset, n, kw) in enumerate(KERNEL_CASES):
+        n_ph, y, t0, pp, uu = window_inputs(preset, n, i, "cuda", **kw)
+        out[f"k1/{name}"] = rk4_window_batch(y, t0, pp, uu, n_ph=n_ph,
+                                             n_sub=N_SUB, dt=DT)
+        n_ph, *args = df_inputs(preset, n, i, "cuda", **kw)
+        out[f"k3/{name}"] = torch.stack(rk4_window_batch_df(
+            *args, n_ph=n_ph, n_sub=N_SUB, dt=DT))
+    for i, (name, preset, n, m, kw) in enumerate(FLEET_CASES):
+        n_ph, y, t0, pp, uu = fleet_inputs(preset, n, m, 100 + i, "cuda", **kw)
+        out[f"k2/{name}"] = rk4_fleet_window_batch(y, t0, pp, uu, n_ph=n_ph,
+                                                   m=m, n_sub=N_SUB, dt=DT)
+    out = {k: v.cpu().numpy() for k, v in out.items()}
+    np.savez(path, **out)
+    if against is not None:
+        other = np.load(against)
+        for key, a in out.items():
+            b = other[key]
+            print(json.dumps({"case": key, "bitwise_equal": bool(
+                np.array_equal(a.view(np.uint32), b.view(np.uint32))),
+                "max_abs_diff": float(np.abs(a.astype(np.float64) - b).max())}),
+                flush=True)
     return 0
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--fleet", action="store_true")
+    mode.add_argument("--df", action="store_true")
+    mode.add_argument("--sass", action="store_true")
+    mode.add_argument("--outputs", metavar="FILE")
+    ap.add_argument("--against", metavar="OTHER")
+    args = ap.parse_args()
+    if args.against and not args.outputs:
+        ap.error("--against needs --outputs")
     if not torch.cuda.is_available():
         print("profile_torch_step: no CUDA device is available", file=sys.stderr)
         return 1
@@ -160,10 +156,11 @@ def main() -> int:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
-    if "--k3" in sys.argv[1:]:
-        return profile_k3(card, [a for a in sys.argv[1:] if a != "--k3"])
-    path = ("fleet" if "--fleet" in sys.argv[1:]
-            else "df" if "--df" in sys.argv[1:] else "single")
+    if args.sass:
+        return report_sass(card)
+    if args.outputs:
+        return kernel_outputs(args.outputs, args.against)
+    path = "fleet" if args.fleet else "df" if args.df else "single"
     kw = dict(dtype=torch.float32, n_sub=N_SUB, device="cuda")
     if path == "fleet":
         n_envs, shape = FLEET_ENVS, {"n_envs": FLEET_ENVS, "m": FLEET_M}
@@ -187,6 +184,11 @@ def main() -> int:
     state, obs, r, _ = roll(cfg, state, obs, policy, WARM, gen)
     float(r.sum())
 
+    t = time.perf_counter()
+    state, obs, r, _ = roll(cfg, state, obs, policy, TIMED, gen)
+    float(r.sum())
+    untraced_ms = 1e3 * (time.perf_counter() - t) / TIMED
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         state, obs, r, _ = roll(cfg, state, obs, policy, STEPS, gen)
@@ -207,6 +209,8 @@ def main() -> int:
     print(json.dumps({
         "card": card, "path": path, **shape,
         "n_sub": N_SUB,
+        "untraced_steps": TIMED, "untraced_ms_per_step": untraced_ms,
+        "env_steps_per_s": 1e3 * n_envs / untraced_ms,
         "steps": STEPS, "wall_ms_per_step": wall_ms,
         "device_busy_ms_per_step": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms,

@@ -26,28 +26,28 @@
 // - The four stages run as a loop (`#pragma unroll 1`), so one copy of the
 //   RHS is in the code and the substep loop fits the instruction cache.
 //   This halves the single-phase time by itself.
-// - The three-phase model runs on a team of two adjacent lanes per env
-//   (TEAM_3PH). Nearly all of the RHS is complex arithmetic on (re, im)
-//   pairs: lane 0 computes the re component of every piece, lane 1 the im
-//   one, with the same instructions on their own operands (rhs.cuh's pieces
-//   under a run-time `Lane` role), and the two exchange a df value (hi, lo:
-//   two __shfl_xor_sync) where the next piece needs both. The scalar chains
+// - The three-phase model runs on a team of two adjacent lanes per env.
+//   Nearly all of the RHS is complex arithmetic on (re, im) pairs: lane 0
+//   computes the re component of every piece, lane 1 the im one, with the
+//   same instructions on their own operands (rhs.cuh's pieces under a
+//   run-time `Lane` role), and the two exchange a df value (hi, lo: two
+//   __shfl_xor_sync) where the next piece needs both. The scalar chains
 //   come in pairs of one function and run side by side: the current
 //   limiter's |(id, iq)| and soft-limit scale (lane 0) with phase 0's
 //   modulation limiter (lane 1), then phases 1 and 2's; the anti-windup
 //   gate's exp and divide (lane 0) with the PV diode's exp and the DC link's
 //   divide (lane 1); sin(theta)'s polynomial (lane 0) with cos(theta)'s
 //   (lane 1); the substep's two grid phasors, one per lane. A lane keeps only
-//   its own states (M = 3N + 3 slots: its component of the phase currents,
-//   GCC integrators and filter states; lane 0 xdc, theta, xpll; lane 1 xq,
-//   vdc and a pad) with their RK4 stage and accumulator, and updates only
-//   those, so the three-phase kernel no longer spills.
-// - The single-phase model keeps one lane per env (TEAM_1PH): its team of
-//   two runs ~20% more instructions per env than one lane (the pieces both
-//   lanes need, the selects and the exchanges) and at 32768 envs the extra
-//   warps do not pay for them.
+//   its own states (3N + 3 slots: its component of the phase currents, GCC
+//   integrators and filter states; lane 0 xdc, theta, xpll; lane 1 xq, vdc
+//   and a pad) with their RK4 stage and accumulator, and updates only those,
+//   so the three-phase kernel does not spill.
+// - The single-phase model keeps one lane per env: a team of two ran ~20%
+//   more instructions per env than one lane (the pieces both lanes need, the
+//   selects and the exchanges) and at 32768 envs the extra warps did not pay
+//   for them (PERF.md).
 // Every df operation is the one-lane RHS's, in the same order, so the result
-// equals the plain df32 version bit for bit in either layout.
+// equals the plain df32 version bit for bit.
 //
 // Layout: y_hi, y_lo and the outputs are [N, n_s] row-major; t0 is [N]; p and
 // u are field-major [29, N] and [15, N]. Any N >= 1: lanes past the last env
@@ -58,19 +58,6 @@
 namespace {
 
 using namespace pvderx;
-
-// Lanes per env (1 or 2) for the single- and the three-phase model; the
-// defaults are the faster layout on an H100 (PERF.md). A build may set them
-// (-D) to time the other.
-#ifndef TEAM_1PH
-#define TEAM_1PH 1
-#endif
-#ifndef TEAM_3PH
-#define TEAM_3PH 2
-#endif
-static_assert((TEAM_1PH == 1 || TEAM_1PH == 2)
-                  && (TEAM_3PH == 1 || TEAM_3PH == 2),
-              "a team is one or two lanes");
 
 constexpr int BLOCK = 64;
 
@@ -143,7 +130,11 @@ __device__ __forceinline__ void rk4_window_df(df (&y)[M], df t0, df h,
   }
 }
 
-template <int N, int TEAM>
+// Lanes per env: one for the single-phase model, a two-lane team for the
+// three-phase one.
+__host__ __device__ constexpr int team(int n_ph) { return n_ph == 1 ? 1 : 2; }
+
+template <int N>
 __global__ void __launch_bounds__(BLOCK)
 window_df_kernel(const float* __restrict__ y_hi, const float* __restrict__ y_lo,
                  const float* __restrict__ t0_in, const float* __restrict__ p,
@@ -151,7 +142,7 @@ window_df_kernel(const float* __restrict__ y_hi, const float* __restrict__ y_lo,
                  float* __restrict__ out_lo, int n, int n_sub, float h_hi,
                  float h_lo) {
   constexpr int NS = 6 * N + 5;
-  const int e = (blockIdx.x * blockDim.x + threadIdx.x) / TEAM;
+  const int e = (blockIdx.x * blockDim.x + threadIdx.x) / team(N);
   const int ec = min(e, n - 1);
   auto P = [&](int f) { return p[static_cast<size_t>(f) * n + ec]; };
   auto U = [&](int f) { return u[static_cast<size_t>(f) * n + ec]; };
@@ -165,7 +156,7 @@ window_df_kernel(const float* __restrict__ y_hi, const float* __restrict__ y_lo,
   df r1_re, r1_im;
   grid_rot(t0, fd, r1_re, r1_im);
 
-  if constexpr (TEAM == 1) {
+  if constexpr (N == 1) {
     // rhs_core.rhs: the DER's own injection sets its PCC voltage
     auto rhs = [&](const df (&ys)[NS], df rot_re, df rot_im, df (&dy)[NS]) {
       df ii_re[N], ii_im[N], v_re[N], v_im[N];
@@ -220,12 +211,10 @@ window_df_kernel(const float* __restrict__ y_hi, const float* __restrict__ y_lo,
       df v_re[N], v_im[N];
 #pragma unroll
       for (int k = 0; k < N; ++k) {
-        df vg_re = vgp_re, vg_im = vgp_im;
-        if (N != 1) {
-          const df c = grid_source(r, k, vgp_re, vgp_im, rot_re, rot_im, fd,
-                                   w.ak_re, w.ak_im);
-          join(r, c, xch(c), vg_re, vg_im);
-        }
+        const df c = grid_source(r, k, vgp_re, vgp_im, rot_re, rot_im, fd,
+                                 w.ak_re, w.ak_im);
+        df vg_re, vg_im;
+        join(r, c, xch(c), vg_re, vg_im);
         const df s =
             pcc_sum(r, vg_re, vg_im, pick(r, ii_re[k], ii_im[k]), fd);
         df s_re, s_im;
@@ -233,8 +222,8 @@ window_df_kernel(const float* __restrict__ y_hi, const float* __restrict__ y_lo,
         const df v = pcc_node(r, s_re, s_im, fd);
         join(r, v, xch(v), v_re[k], v_im[k]);
       }
-      df vp_re = v_re[0], vp_im = v_im[0];
-      if (N != 1) {
+      df vp_re, vp_im;
+      {
         df c = lit<df>(0.0);
 #pragma unroll
         for (int k = 0; k < N; ++k) c = c + vpos_term(r, k, v_re, v_im, w);
@@ -265,25 +254,23 @@ window_df_kernel(const float* __restrict__ y_hi, const float* __restrict__ y_lo,
 #pragma unroll
       for (int k = 0; k < N; ++k)
         pq = pq + power_term(r, v_re[k], v_im[k], ii_re[k], ii_im[k]);
-      if (N != 1) pq = pq / lit<df>(N);
+      pq = pq / lit<df>(N);
       const df err = pick(r, dc_error(w, vdc, pq), q_error(w, pq));
       const df raw = current_raw(r, w, err, ys[3 * N]);
 
       // the limiters: lane 0 the current (id, iq), lane 1 phase 0's
-      // modulation; three-phase, then phase 1 on lane 0 and phase 2 on lane 1
+      // modulation; then phase 1 on lane 0 and phase 2 on lane 1
       df s_lim, s_m[N], mag;
       {
         const df o = xch(pick(r, m[0], raw));
         const df s = limit(pick(r, raw, o), pick(r, o, m[0]),
                            pick(r, w.inv_i_max, w.inv_m_max), mag);
         join(r, s, xch(s), s_lim, s_m[0]);
-        if (N == 3) {
-          const df o2 = xch(pick(r, m[2], m[1]));
-          df mag2;
-          const df s2 = limit(pick(r, m[1], o2), pick(r, o2, m[2]),
-                              w.inv_m_max, mag2);
-          join(r, s2, xch(s2), s_m[1], s_m[2]);
-        }
+        const df o2 = xch(pick(r, m[2], m[1]));
+        df mag2;
+        const df s2 = limit(pick(r, m[1], o2), pick(r, o2, m[2]), w.inv_m_max,
+                            mag2);
+        join(r, s2, xch(s2), s_m[1], s_m[2]);
       }
       df vt[N];
 #pragma unroll
@@ -305,18 +292,18 @@ window_df_kernel(const float* __restrict__ y_hi, const float* __restrict__ y_lo,
       for (int k = 0; k < N; ++k)
         p_inv =
             p_inv + power_term(Re{}, vt_re[k], vt_im[k], i_re[k], i_im[k]);
-      if (N != 1) p_inv = p_inv / lit<df>(N);
+      p_inv = p_inv / lit<df>(N);
       const df p_pv = pv_power(w, ee, vdc_v);
       const df q = pick(r, lit<df>(1.0), dc_link_num(w, p_pv, p_inv))
                    / pick(r, aw_denominator(ee), dc_link_den(w, vdc_pos));
       const df aw = w.en * pick(r, q, xch(q));
 
-      // the dq current reference rotated by theta; one-phase, a lane needs
-      // only its own component of it
+      // the dq current reference rotated by theta
       df id_ref, iq_ref;
       join(r, ref, xch(ref), id_ref, iq_ref);
-      df idq_re = cmul(r, id_ref, iq_ref, cth, sth), idq_im = idq_re;
-      if (N != 1) join(r, idq_re, xch(idq_re), idq_re, idq_im);
+      const df idq = cmul(r, id_ref, iq_ref, cth, sth);
+      df idq_re, idq_im;
+      join(r, idq, xch(idq), idq_re, idq_im);
 
       // rhs_from_algebra on this lane's slots
 #pragma unroll
@@ -364,14 +351,14 @@ window_df_kernel(const float* __restrict__ y_hi, const float* __restrict__ y_lo,
   }
 }
 
-template <int N, int TEAM>
+template <int N>
 void launch(int n, cudaStream_t s, const float* yh, const float* yl,
             const float* tf, const float* pf, const float* uf, float* oh,
             float* ol, int n_sub, float h_hi, float h_lo) {
-  const long long threads = static_cast<long long>(n) * TEAM;
+  const long long threads = static_cast<long long>(n) * team(N);
   const dim3 grid(static_cast<unsigned>((threads + BLOCK - 1) / BLOCK));
-  window_df_kernel<N, TEAM><<<grid, BLOCK, 0, s>>>(yh, yl, tf, pf, uf, oh, ol,
-                                                   n, n_sub, h_hi, h_lo);
+  window_df_kernel<N><<<grid, BLOCK, 0, s>>>(yh, yl, tf, pf, uf, oh, ol, n,
+                                             n_sub, h_hi, h_lo);
 }
 
 }  // namespace
@@ -391,7 +378,7 @@ extern "C" int pvderx_rk4_window_df(const void* y_hi, const void* y_lo,
   auto uf = static_cast<const float*>(u);
   auto oh = static_cast<float*>(out_hi);
   auto ol = static_cast<float*>(out_lo);
-  (n_ph == 1 ? launch<1, TEAM_1PH> : launch<3, TEAM_3PH>)(
+  (n_ph == 1 ? launch<1> : launch<3>)(
       n, s, yh, yl, tf, pf, uf, oh, ol, n_sub, h_hi, h_lo);
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,14 +2,14 @@
 
 - `chip_smoke.ptxas_summary` reads registers and spill bytes for every
   window kernel of an `nvcc -Xptxas -v` report: K1 (`window_kernel<N>`), K2
-  (`fleet_window_kernel<N,THREADS>`) and K3 with its lanes per env as a
-  second template argument (`window_df_kernel<N,TEAM>`), so the build phase
+  (`fleet_window_kernel<N,THREADS>`) and K3 (`window_df_kernel<N>`: one
+  lane per env at N = 1, a two-lane team at N = 3), so the build phase
   keeps reporting the three-phase df32 kernel's spills.
 - `profile_torch_step.sass_loops` finds, in a `cuobjdump -sass` listing, the
   substep loop (the largest backward branch) and the stage loop inside it,
   and estimates the instructions one substep runs.
 """
-from chip_smoke import ptxas_summary
+from chip_smoke import kernel_name, ptxas_summary
 from profile_torch_step import sass_loops
 
 _DF = "_ZN45_GLOBAL__N__ff6dd2e5_12_window_df_cu_c1c5c16e16window_df_kernel"
@@ -27,9 +27,8 @@ def _entry(name, regs, stores, loads):
 
 
 REPORT = ("ptxas info    : 16 bytes gmem\n"
-          + _entry(f"{_DF}ILi3ELi2EEEvPKfS2_S2_S2_S2_PfS3_iiff", 254, 0, 0)
-          + _entry(f"{_DF}ILi1ELi1EEEvPKfS2_S2_S2_S2_PfS3_iiff", 191, 0, 0)
-          + _entry(f"{_DF}ILi3ELi1EEEvPKfS2_S2_S2_S2_PfS3_iiff", 255, 120, 136)
+          + _entry(f"{_DF}ILi3EEEvPKfS2_S2_S2_S2_PfS3_iiff", 255, 120, 136)
+          + _entry(f"{_DF}ILi1EEEvPKfS2_S2_S2_S2_PfS3_iiff", 201, 0, 0)
           + "ptxas info    : 24 bytes gmem\n"
           + _entry(f"{_K1}ILi3EEEvPKfS2_S2_S2_Pfiifff", 176, 0, 0)
           + _entry(f"{_K1}ILi1EEEvPKfS2_S2_S2_Pfiifff", 111, 0, 0)
@@ -41,9 +40,8 @@ REPORT = ("ptxas info    : 16 bytes gmem\n"
 def test_torch_chip_smoke_ptxas_summary_reads_every_window_kernel():
     got = ptxas_summary(REPORT)
     want = {
-        "window_df_kernel<3,2>": (254, 0, 0),
-        "window_df_kernel<1,1>": (191, 0, 0),
-        "window_df_kernel<3,1>": (255, 120, 136),
+        "window_df_kernel<3>": (255, 120, 136),
+        "window_df_kernel<1>": (201, 0, 0),
         "window_kernel<3>": (176, 0, 0),
         "window_kernel<1>": (111, 0, 0),
         "fleet_window_kernel<3,1024>": (32, 1944, 3728),
@@ -77,3 +75,11 @@ def test_torch_chip_smoke_sass_loops_nested_and_flat():
                                    stage_loop=4, per_substep_est=21)
     assert got["k_flat"] == dict(instructions=5, substep_loop=3, stage_loop=0,
                                  per_substep_est=3)
+
+
+def test_torch_chip_smoke_kernel_name_short_forms():
+    assert kernel_name(f"{_DF}ILi3EEEvPKfS2_S2_S2_S2_PfS3_iiff") \
+        == "window_df_kernel<3>"
+    assert kernel_name(f"{_K2}ILi1ELi256EEEvPKfS2_S2_S2_Pfiiiiifff") \
+        == "fleet_window_kernel<1,256>"
+    assert kernel_name("_Z6helperv") == "_Z6helperv"
