@@ -20,7 +20,9 @@ Phases, one line each (a failing phase raises, so the script exits non-zero):
               32768 envs, zero-action policy): reset, a warm-up chunk and two
               timed chunks of 600 steps (the best counts); the kernel's
               launch count must equal the steps taken, obs/reward finite,
-              episodes done.
+              episodes done; K1 and its plain version ms per call at the
+              main path's inputs, and K1 at preset 50 (three-phase), 32768
+              envs, n_sub=64, on `window_inputs`.
 6. linear   — two chained chunks take 1.5-2.7x one chunk (the timing syncs).
 7. fleet_kernel — the CUDA fleet window kernel (K2) against its plain
               version: config 5's shape (N=4096, M=16, insolation spread),
@@ -323,23 +325,29 @@ def run_main(device, card, n_envs=N_ENVS, n_sub=N_SUB, warm=WARM_STEPS,
     args = (state.y, t_win, pack_struct(state.der, P_FIELDS),
             pack_struct(exog, U_FIELDS))
     kw = dict(n_ph=cfg.der.n_ph, n_sub=n_sub, dt=cfg.dt_ctrl)
-    kernel_ms = plain_ms = None
+    kernel_ms = plain_ms = k1_50_ms = None
     if cuda:
         kernel_ms = _time_ms(lambda: rk4_window_batch(*args, **kw), 20, device)
         plain_ms = _time_ms(lambda: rk4_window_batch_ref(*args, **kw), 2, device)
+        # K1 three-phase at the same width and n_sub
+        _, *args50 = window_inputs("50", n_envs, 50, device)
+        k1_50_ms = _time_ms(lambda: rk4_window_batch(
+            *args50, n_ph=3, n_sub=n_sub, dt=cfg.dt_ctrl), 20, device)
     step_ms = 1e3 * out["chunk_s"] / chunk
     phase("main", card=card, n_envs=n_envs, n_sub=n_sub, reset_s=reset_s,
           init_res_max=init_res_max, timed_steps=chunk,
           env_steps_per_s=n_envs * chunk / out["chunk_s"], step_ms=step_ms,
           kernel_ms_per_launch=kernel_ms,
           kernel_share_of_step=(kernel_ms / step_ms if kernel_ms else None),
-          plain_window_ms=plain_ms, peak_mem_mib=peak_mib,
+          plain_window_ms=plain_ms, preset50_ms_per_launch=k1_50_ms,
+          peak_mem_mib=peak_mib,
           launches=launches, steps=out["steps"], dones=out["dones"],
           rew_sum=out["rew_sum"], finite=out["finite"])
     phase("linear", card=card, two_chunks_over_one=out["ratio"],
           band=[1.5, 2.7])
     _check_drive("main", out, launches, cuda)
-    return dict(launches=launches, kernel_ms=kernel_ms, plain_ms=plain_ms)
+    return dict(launches=launches, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                preset50_ms=k1_50_ms)
 
 
 def fleet_inputs(preset, n, m, seed, device, u_over=None, shade=0.0,
@@ -759,15 +767,18 @@ def run_df_main(device, card, n_envs=N_ENVS, n_sub=N_SUB, warm=WARM_STEPS,
 
 
 def kernel_name(mangled: str) -> str:
-    """`window_kernel<3>` and the like for a window kernel's mangled name;
-    any other name as it is."""
+    """`window_kernel<3>` and the like for a window kernel's mangled or
+    demangled name; any other name as it is."""
     import re
 
     k = re.search(r"((?:fleet_)?window(?:_df)?_kernel)I((?:Li\d+E)+)E", mangled)
-    if not k:
-        return mangled
-    args = re.findall(r"Li(\d+)E", k.group(2))
-    return f"{k.group(1)}<{','.join(args)}>"
+    if k:
+        args = re.findall(r"Li(\d+)E", k.group(2))
+        return f"{k.group(1)}<{','.join(args)}>"
+    k = re.search(r"((?:fleet_)?window(?:_df)?_kernel)<([\d, ]+)>", mangled)
+    if k:
+        return f"{k.group(1)}<{k.group(2).replace(' ', '')}>"
+    return mangled
 
 
 def ptxas_summary(report: str) -> dict:
@@ -849,6 +860,8 @@ def main() -> int:
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
         "issue_bound_ms": issue_ms,
+        "preset50_ms": main_out["preset50_ms"],
+        "preset50_issue_bound_ms": issue(window_ops(N_ENVS, 3, N_SUB)),
         "library_ms": None,
     }, {
         "name": "rk4_fleet_window",

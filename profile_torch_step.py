@@ -4,7 +4,8 @@
     python3 profile_torch_step.py            # the single-DER main path
     python3 profile_torch_step.py --fleet    # the fleet (BASELINE config 5)
     python3 profile_torch_step.py --df       # the df32 tier (make_batch_fns_df)
-    python3 profile_torch_step.py --sass     # registers and SASS per kernel
+    python3 profile_torch_step.py --sass     # registers, SASS and issue floor
+    python3 profile_torch_step.py --kernels  # ms per launch of K1, K2, K3
     python3 profile_torch_step.py --outputs FILE [--against OTHER]
 
 Runs the main path (preset 10, f32, n_sub=64, 32768 envs, zero-action policy,
@@ -22,7 +23,18 @@ that take the most device time.
 window kernel: registers and spill bytes (ptxas) and, from `cuobjdump -sass`
 on the library, its instruction count, the static size of its substep loop
 and of the stage loop inside it, and an estimate of the instructions one
-substep runs.
+substep runs. For each kernel that a `--kernels` shape launches, the line
+also holds that shape, the warps of the launch (grid and block from a
+`torch.profiler` trace of one call) and the SASS-issue floor: instructions
+per substep x n_sub x warps / (132 SMs x 4 schedulers x max SM clock), one
+warp instruction per scheduler per clock.
+
+``--kernels`` times each window kernel with CUDA events on `chip_smoke.py`'s
+seeded inputs at n_sub=64: K1 at presets 10 and 50 (32768 envs), K2 at
+BASELINE config 5 (4096 envs x 16 units), K3 at presets 10 and 50 (32768
+envs). One JSON line per shape: ms per launch and the lane-issue floor
+(operations / (132 SMs x 128 FP32 lanes x max SM clock)). To compare two
+checkouts, run this mode in each, in turns (A B B A).
 
 ``--outputs FILE`` runs each window kernel (K1, K2, K3) once on the seeded
 inputs of `chip_smoke.py`'s kernel phases (K1 and K3 on its six window
@@ -39,6 +51,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -48,6 +61,7 @@ from torch.profiler import ProfilerActivity, profile
 
 N_ENVS, N_SUB, STEPS, WARM, TIMED = 32768, 64, 20, 10, 200
 FLEET_ENVS, FLEET_M = 4096, 16
+SMS, SCHEDULERS, FP32_LANES = 132, 4, 128   # per H100 SXM; per SM
 
 
 def sass_loops(sass: str) -> dict:
@@ -85,6 +99,106 @@ def sass_loops(sass: str) -> dict:
     return out
 
 
+def sass_per_substep(loops: dict) -> tuple[bool, int]:
+    """(stages looped, SASS instructions one substep runs) from a
+    `sass_loops` entry. The stages count as looped where the inner loop
+    holds at least half of the substep loop; then `per_substep_est`.
+    Otherwise the inner loop is a small one inside written-out stages (the
+    sin/cos argument reduction) and the substep loop's static size is what
+    one substep runs."""
+    looped = 2 * loops["stage_loop"] >= loops["substep_loop"] > 0
+    return looped, (loops["per_substep_est"] if looped
+                    else loops["substep_loop"])
+
+
+def sass_issue_floor_ms(per_substep: int, n_sub: int, warps: int,
+                        clock_mhz: float) -> float:
+    """The least time the SMs take to issue a window's SASS: one warp
+    instruction per scheduler per clock on every scheduler of the card."""
+    return 1e3 * per_substep * n_sub * warps / (SMS * SCHEDULERS
+                                                * clock_mhz * 1e6)
+
+
+def trace_launch(trace: dict) -> dict | None:
+    """The window kernel of a `torch.profiler` chrome trace: its short name
+    and the warps it launched (grid blocks x warps per block)."""
+    from chip_smoke import kernel_name
+
+    for ev in trace.get("traceEvents", []):
+        name = ev.get("name", "")
+        if ev.get("cat") != "kernel" or "window" not in name:
+            continue
+        args = ev.get("args", {})
+        grid, block = args.get("grid"), args.get("block")
+        if not grid or not block:
+            return None
+        blocks = grid[0] * grid[1] * grid[2]
+        threads = block[0] * block[1] * block[2]
+        return dict(kernel=kernel_name(name), warps=blocks * -(-threads // 32))
+    return None
+
+
+def launch_of(fn) -> dict | None:
+    """`trace_launch` of one call of ``fn`` under the profiler."""
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            return trace_launch(json.load(f))
+
+
+def kernel_shapes(device: str = "cuda") -> dict:
+    """{shape: (call, operations, reps)}: each window kernel at the shapes
+    `--kernels` times, on `chip_smoke.py`'s seeded inputs, n_sub=64."""
+    import functools
+
+    from chip_smoke import DT, df_inputs, fleet_inputs, window_inputs
+    from pvderx_torch.ops.dualfloat import rk4_window_batch_df, window_df_ops
+    from pvderx_torch.ops.window import (
+        fleet_window_ops, rk4_fleet_window_batch, rk4_window_batch, window_ops)
+
+    out = {}
+    for preset, seed in (("10", 0), ("50", 50)):
+        n_ph, *args = window_inputs(preset, N_ENVS, seed, device)
+        out[f"k1_preset{preset}"] = (functools.partial(
+            rk4_window_batch, *args, n_ph=n_ph, n_sub=N_SUB, dt=DT),
+            window_ops(N_ENVS, n_ph, N_SUB), 50)
+    n_ph, *args = fleet_inputs("10", FLEET_ENVS, FLEET_M, 100, device,
+                               shade=0.25)
+    out["k2_config5"] = (functools.partial(
+        rk4_fleet_window_batch, *args, n_ph=n_ph, m=FLEET_M, n_sub=N_SUB,
+        dt=DT), fleet_window_ops(FLEET_ENVS, FLEET_M, n_ph, N_SUB), 50)
+    for preset, seed in (("10", 0), ("50", 50)):
+        n_ph, *args = df_inputs(preset, N_ENVS, seed, device)
+        out[f"k3_preset{preset}"] = (functools.partial(
+            rk4_window_batch_df, *args, n_ph=n_ph, n_sub=N_SUB, dt=DT),
+            window_df_ops(N_ENVS, n_ph, N_SUB), 10)
+    return out
+
+
+def max_clock_mhz() -> float:
+    from chip_smoke import _smi
+
+    return float(_smi("clocks.max.sm").split()[0])
+
+
+def time_kernels(card: str) -> int:
+    """The --kernels mode (see the module docstring)."""
+    from chip_smoke import _time_ms
+
+    clock = max_clock_mhz()
+    for shape, (call, ops, reps) in kernel_shapes().items():
+        ms = _time_ms(call, reps, "cuda")
+        print(json.dumps({
+            "card": card, "shape": shape, "n_sub": N_SUB, "reps": reps,
+            "ms": ms, "lane_issue_floor_ms":
+                1e3 * ops / (SMS * FP32_LANES * clock * 1e6)}), flush=True)
+    return 0
+
+
 def report_sass(card: str) -> int:
     """The --sass mode (see the module docstring)."""
     from chip_smoke import kernel_name, ptxas_summary
@@ -95,10 +209,28 @@ def report_sass(card: str) -> int:
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(so)], capture_output=True,
                           text=True, check=True).stdout
-    for name, loops in sass_loops(sass).items():
-        short = kernel_name(name)
-        print(json.dumps({"card": card, "kernel": short, **regs.get(short, {}),
-                          **loops}), flush=True)
+    loops = {kernel_name(name): lp for name, lp in sass_loops(sass).items()}
+    clock = max_clock_mhz()
+    shown = set()
+    for shape, (call, _, _) in kernel_shapes().items():
+        launch = launch_of(call)
+        if launch is None or launch["kernel"] not in loops:
+            print(json.dumps({"card": card, "shape": shape,
+                              "launch": launch}), flush=True)
+            continue
+        short = launch["kernel"]
+        looped, per_substep = sass_per_substep(loops[short])
+        shown.add(short)
+        print(json.dumps({
+            "card": card, "kernel": short, **regs.get(short, {}),
+            **loops[short], "shape": shape, "warps": launch["warps"],
+            "stages_looped": looped, "sass_per_substep": per_substep,
+            "sass_issue_floor_ms": sass_issue_floor_ms(
+                per_substep, N_SUB, launch["warps"], clock)}), flush=True)
+    for short, lp in loops.items():
+        if short not in shown:
+            print(json.dumps({"card": card, "kernel": short,
+                              **regs.get(short, {}), **lp}), flush=True)
     return 0
 
 
@@ -141,6 +273,7 @@ def main() -> int:
     mode.add_argument("--fleet", action="store_true")
     mode.add_argument("--df", action="store_true")
     mode.add_argument("--sass", action="store_true")
+    mode.add_argument("--kernels", action="store_true")
     mode.add_argument("--outputs", metavar="FILE")
     ap.add_argument("--against", metavar="OTHER")
     args = ap.parse_args()
@@ -158,6 +291,8 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip()
     if args.sass:
         return report_sass(card)
+    if args.kernels:
+        return time_kernels(card)
     if args.outputs:
         return kernel_outputs(args.outputs, args.against)
     path = "fleet" if args.fleet else "df" if args.df else "single"

@@ -123,10 +123,34 @@ fleet_window_kernel(const float* __restrict__ y_in,
     rhs_given_v<float, N>(ys, v_re, v_im, wu, dy);
   };
 
+  // The grid phasors, once per env: the g lanes of a group (a warp's 32
+  // when the env spans warps) take the substeps in turns. At each substep
+  // s with s mod g = 0, lane j computes the pair of substep s + j; at
+  // substep s every lane takes the pair from lane s mod g of its group.
+  const float t0 = t0_in[ec];
+  const int jl = threadIdx.x & (g - 1);
+  float ph_re = 0.0f, ph_im = 0.0f, p4_re = 0.0f, p4_im = 0.0f;
+  auto phasors = [&](int s, float& rh_re, float& rh_im, float& r4_re,
+                     float& r4_im) {
+    const int k = s & (g - 1);
+    if (k == 0) {
+      float th, t4;
+      stage_times(t0, s + jl, h, hh, th, t4);
+      grid_rot(th, fd, ph_re, ph_im);
+      grid_rot(t4, fd, p4_re, p4_im);
+    }
+    rh_re = __shfl_sync(0xffffffffu, ph_re, k, g);
+    rh_im = __shfl_sync(0xffffffffu, ph_im, k, g);
+    r4_re = __shfl_sync(0xffffffffu, p4_re, k, g);
+    r4_im = __shfl_sync(0xffffffffu, p4_im, k, g);
+  };
+  float r1_re, r1_im;
+  grid_rot(t0, fd, r1_re, r1_im);
+
   float y[NS];
 #pragma unroll
   for (int j = 0; j < NS; ++j) y[j] = y_in[cell * NS + j];
-  rk4_window<N>(y, t0_in[ec], fd, n_sub, h, hh, h6, rhs);
+  rk4_window(y, r1_re, r1_im, n_sub, h, hh, h6, rhs, phasors);
   if (valid) {
 #pragma unroll
     for (int j = 0; j < NS; ++j) y_out[cell * NS + j] = y[j];

@@ -7,10 +7,15 @@
   keeps reporting the three-phase df32 kernel's spills.
 - `profile_torch_step.sass_loops` finds, in a `cuobjdump -sass` listing, the
   substep loop (the largest backward branch) and the stage loop inside it,
-  and estimates the instructions one substep runs.
+  and estimates the instructions one substep runs; `sass_per_substep` and
+  `sass_issue_floor_ms` turn that into the SASS-issue floor, and
+  `trace_launch` reads a launch's warps from a profiler trace.
 """
+import pytest
+
 from chip_smoke import kernel_name, ptxas_summary
-from profile_torch_step import sass_loops
+from profile_torch_step import (sass_issue_floor_ms, sass_loops,
+                                sass_per_substep, trace_launch)
 
 _DF = "_ZN45_GLOBAL__N__ff6dd2e5_12_window_df_cu_c1c5c16e16window_df_kernel"
 _K1 = "_ZN41_GLOBAL__N__fab7f576_9_window_cu_308ee5ab13window_kernel"
@@ -83,3 +88,60 @@ def test_torch_chip_smoke_kernel_name_short_forms():
     assert kernel_name(f"{_K2}ILi1ELi256EEEvPKfS2_S2_S2_Pfiiiiifff") \
         == "fleet_window_kernel<1,256>"
     assert kernel_name("_Z6helperv") == "_Z6helperv"
+    # demangled, as a profiler trace names them
+    assert kernel_name("void (anonymous namespace)::fleet_window_kernel<1, "
+                       "256>(float const*, float const*, int)") \
+        == "fleet_window_kernel<1,256>"
+    assert kernel_name("void (anonymous namespace)::window_kernel<3>(float "
+                       "const*, float*, int, int, float)") == "window_kernel<3>"
+
+
+def test_torch_chip_smoke_sass_issue_floor_flat_and_looped():
+    # written-out stages: a substep loop (0x10..0xb0) that holds only a small
+    # inner loop (0x40..0x60, the sin/cos reduction): one substep runs the
+    # substep loop's 12 instructions
+    flat = ["MOV R1, c[0x0][0x28]", "FADD R3, R3, R4", "FMUL R5, R5, R6",
+            "FFMA R7, R7, R8, R9", "IADD3 R2, R2, 0x1, RZ", "@P0 BRA 0x40",
+            "MUFU.RSQ R1, R2", "FADD R3, R3, R4", "FADD R3, R3, R4",
+            "FADD R3, R3, R4", "FADD R3, R3, R4", "@P1 BRA 0x10", "EXIT"]
+    # looped stages: the stage loop (0x30..0x90, 7) fills most of the
+    # substep loop (0x10..0xb0, 11): the estimate counts it four times
+    looped = ["MOV R1, c[0x0][0x28]", "MUFU.SIN R2, R3", "MUFU.COS R4, R3",
+              "FADD R3, R3, R4", "FMUL R5, R5, R6", "FFMA R7, R7, R8, R9",
+              "SHFL.BFLY PT, R10, R11, 0x1, 0x1f", "FADD R3, R3, R5",
+              "FADD R3, R3, R5", "@P1 BRA 0x30", "ISETP.GE.AND P2, PT",
+              "@P2 BRA 0x10", "EXIT"]
+    got = sass_loops(_sass("k_flat", flat) + _sass("k_looped", looped))
+    assert got["k_flat"] == dict(instructions=13, substep_loop=11,
+                                 stage_loop=2, per_substep_est=17)
+    assert got["k_looped"] == dict(instructions=13, substep_loop=11,
+                                   stage_loop=7, per_substep_est=32)
+    assert sass_per_substep(got["k_flat"]) == (False, 11)
+    assert sass_per_substep(got["k_looped"]) == (True, 32)
+    # 2000 instructions per substep, 64 substeps, 1024 warps at 1980 MHz:
+    # 1.31e8 warp instructions over 528 schedulers
+    assert sass_issue_floor_ms(2000, 64, 1024, 1980.0) == pytest.approx(
+        1e3 * 2000 * 64 * 1024 / (132 * 4 * 1980e6), rel=1e-12)
+    assert sass_issue_floor_ms(2000, 64, 1024, 1980.0) == pytest.approx(
+        0.12537, abs=1e-5)
+
+
+def test_torch_chip_smoke_trace_launch_reads_warps():
+    trace = {"traceEvents": [
+        {"cat": "cuda_runtime", "name": "cudaLaunchKernel", "args": {}},
+        {"cat": "kernel", "name": "void at::native::vectorized_elementwise"
+         "_kernel<4>(int)", "args": {"grid": [8, 1, 1], "block": [128, 1, 1]}},
+        {"cat": "kernel", "name": "void (anonymous namespace)::fleet_window_"
+         "kernel<1, 256>(float const*, int)",
+         "args": {"grid": [512, 1, 1], "block": [128, 1, 1]}},
+    ]}
+    assert trace_launch(trace) == dict(kernel="fleet_window_kernel<1,256>",
+                                       warps=2048)
+    # a partial warp per block still issues as a whole warp
+    ragged = {"traceEvents": [{"cat": "kernel", "name": "window_kernel<1>",
+                               "args": {"grid": [3, 1, 1],
+                                        "block": [96, 1, 1]}}]}
+    assert trace_launch(ragged)["warps"] == 9
+    ragged["traceEvents"][0]["args"]["block"] = [80, 1, 1]
+    assert trace_launch(ragged)["warps"] == 9
+    assert trace_launch({"traceEvents": []}) is None
