@@ -752,7 +752,7 @@ __device__ __forceinline__ void rk4_window(float (&y)[M], float r1_re,
     float acc[M], ys[M], kv[M];
 #pragma unroll
     for (int j = 0; j < M; ++j) ys[j] = y[j];
-#pragma unroll 1
+#pragma unroll
     for (int st = 0; st < 4; ++st) {
       const float rot_re = st == 0 ? r1_re : st == 3 ? r4_re : rh_re;
       const float rot_im = st == 0 ? r1_im : st == 3 ? r4_im : rh_im;

@@ -31,7 +31,7 @@ using namespace pvderx;
 constexpr int BLOCK = 64;
 
 // Lanes per env.
-__host__ __device__ constexpr int team(int n_ph) { return n_ph == 1 ? 2 : 2; }
+__host__ __device__ constexpr int team(int n_ph) { return n_ph == 1 ? 1 : 1; }
 
 template <int N>
 __global__ void __launch_bounds__(BLOCK)
