@@ -47,7 +47,6 @@ enum UField {
 };
 
 constexpr double TWO_PI_3 = 2.0943951023931953;   // rhs_core.TWO_PI_3
-constexpr float SAT_EXP = -1.0f / 16.0f;          // -1/SAT_K
 constexpr double AW_KAPPA = 40.0;
 constexpr double VDC_PIN_RATE = 1000.0;
 constexpr double T_REF = 298.15;
@@ -58,7 +57,13 @@ __device__ __forceinline__ float exp_t(float x) { return expf(x); }
 __device__ __forceinline__ void sincos_t(float x, float* s, float* c) {
   sincosf(x, s, c);
 }
-__device__ __forceinline__ float pow_sat(float x) { return powf(x, SAT_EXP); }
+// x^(-1/16), x in [1, 1 + 8^16] (the soft limiter's 1 + r^16): three
+// rsqrtf give x^(-1/8), a sqrtf its square root. Within ~2.3 ulp (rsqrtf is
+// within 2 ulp, and each root halves the error it is given), as accurate
+// as powf's documented 4 ulp, at about half of powf's instructions.
+__device__ __forceinline__ float pow_sat(float x) {
+  return sqrtf(rsqrtf(rsqrtf(rsqrtf(x))));
+}
 __device__ __forceinline__ float max_t(float a, float b) { return fmaxf(a, b); }
 __device__ __forceinline__ float min_t(float a, float b) { return fminf(a, b); }
 
