@@ -98,7 +98,7 @@ fleet_window_kernel(const float* __restrict__ y_in,
   Feeder<float, N> fd;
   load_feeder(fd, wu.ak_re, wu.ak_im, P0, U0);
   const float share = valid ? wu.conn : 0.0f;   // padded lanes add 0
-  const float mf = static_cast<float>(m);
+  const float inv_m = 1.0f / static_cast<float>(m);   // exact for M = 2^k
   const int warp = unit >> 5, lane = threadIdx.x & 31;
 
   // the fleet RHS: PCC voltage from the M-mean injection, then this unit's
@@ -115,8 +115,8 @@ fleet_window_kernel(const float* __restrict__ y_in,
     float ii_re[N], ii_im[N], v_re[N], v_im[N];
 #pragma unroll
     for (int k = 0; k < N; ++k) {
-      ii_re[k] = s[k] / mf;
-      ii_im[k] = s[N + k] / mf;
+      ii_re[k] = s[k] * inv_m;
+      ii_im[k] = s[N + k] * inv_m;
     }
     pcc_voltage<float, N>(ii_re, ii_im, rot_re, rot_im, fd, wu.ak_re,
                           wu.ak_im, v_re, v_im);
