@@ -8,14 +8,27 @@
 // shared feeder, set by the mean over the M units of conn*i (rhs_core's
 // pcc_voltage), after which each unit runs rhs_given_v (rhs.cuh).
 //
-// What bounds it on this card: arithmetic, as the single-DER window
+// What bounds it on this card: instruction issue, as the single-DER window
 // (window.cu): ~923 operations per unit per substep (1-phase) against
-// 4*(1 + M*(2*n_s + 29 + 15)) bytes per env per window.
+// 4*(1 + M*(2*n_s + 29 + 15)) bytes per env per window. At BASELINE config
+// 5 (4096 envs x 16 units, 15.5 warps per SM) the stages written out with
+// powf and two divides per RHS ran under the time the SMs need to issue
+// their static substep loop (3014 SASS instructions; some of it, the
+// M > 32 path and the slow paths, does not run), so only fewer
+// instructions move it (PERF.md).
 //
 // What the design does about it: one thread per (env, unit), so a thread
 // keeps the single-DER kernel's register footprint (one unit's state, Kahan
 // carry, accumulator and Prep) and the window runs without touching device
-// memory. The units of one env sit in adjacent lanes: a group of G lanes, G
+// memory; and it issues fewer instructions per unit (2530 per substep, was
+// 3014):
+// - The grid phasors, the same for every unit of an env, are computed once
+//   per env: the lanes of an env's group take the substeps in turns (below),
+//   2 sincosf per lane per g substeps instead of 2 per substep.
+// - The soft limiters' x^(-1/16) is three rsqrtf and a sqrtf, not powf
+//   (rhs.cuh's pow_sat), and the mean injection multiplies the sum by a
+//   hoisted 1/M (exact when M is a power of two) instead of two divides.
+// The units of one env sit in adjacent lanes: a group of G lanes, G
 // the next power of two >= M (G <= 32), so the M-sum of the 2*n_ph injected
 // current components is a __shfl_xor_sync butterfly inside the warp. When
 // M > 32 an env spans W = ceil(M/32) warps: each warp reduces by butterfly,
@@ -25,6 +38,12 @@
 // nothing; no thread returns early, because every lane of a warp takes part
 // in each shuffle. The reduction order depends only on M, not on the block
 // shape, and the xor butterfly gives every lane the same sum bit for bit.
+//
+// The phasors of an env spanning W warps are computed by each warp for
+// itself (g = 32). A table of the window's 2*n_sub+1 phasors in shared
+// memory, filled once by the env's W*32 threads, would save each thread at
+// most ~2 sincosf per window (of ~64 substeps x 4 RHS evaluations), under
+// the timing's spread, for a barrier and a cap on n_sub; it was not built.
 //
 // The feeder's fields (rg, xg, w_base, g_load, b_load, v_g, phi_g, dw_g, t_g,
 // v_g2, phi_g2) are read from unit 0 of the env by every thread of its
@@ -125,8 +144,10 @@ fleet_window_kernel(const float* __restrict__ y_in,
 
   // The grid phasors, once per env: the g lanes of a group (a warp's 32
   // when the env spans warps) take the substeps in turns. At each substep
-  // s with s mod g = 0, lane j computes the pair of substep s + j; at
-  // substep s every lane takes the pair from lane s mod g of its group.
+  // s with s mod g = 0, lane j computes the pair of substep s + j (times by
+  // rhs.cuh's stage_times, so the pair has the bits the lane that uses it
+  // would compute); at substep s every lane takes the pair from lane
+  // s mod g of its group. At M = 1 (g = 1) each lane computes its own.
   const float t0 = t0_in[ec];
   const int jl = threadIdx.x & (g - 1);
   float ph_re = 0.0f, ph_im = 0.0f, p4_re = 0.0f, p4_im = 0.0f;

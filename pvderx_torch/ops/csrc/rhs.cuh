@@ -16,9 +16,8 @@
 // mean injection of the units on the feeder, then rhs_given_v per unit.
 // Both are written as calls to small pieces (one equation of rhs_core
 // each), most of them one component of a complex quantity under a role
-// (Re, Im, or a run-time Lane). rhs_team is the same RHS on a two-lane team,
-// each lane calling the pieces for its own component (window.cu and
-// window_df.cu run their three-phase model so).
+// (Re, Im, or a run-time Lane): the df32 kernel's two-lane team
+// (window_df.cu) calls the same pieces, each lane for its own component.
 //
 // Arithmetic follows rhs_core operation by operation, in the same order.
 // In float, nvcc contracts a*b+c into FMAs, so results are not bitwise equal
@@ -58,9 +57,10 @@ __device__ __forceinline__ void sincos_t(float x, float* s, float* c) {
   sincosf(x, s, c);
 }
 // x^(-1/16), x in [1, 1 + 8^16] (the soft limiter's 1 + r^16): three
-// rsqrtf give x^(-1/8), a sqrtf its square root. Within ~2.3 ulp (rsqrtf is
-// within 2 ulp, and each root halves the error it is given), as accurate
-// as powf's documented 4 ulp, at about half of powf's instructions.
+// rsqrtf give x^(-1/8), a sqrtf its square root. Each root halves the
+// relative error it is given, so the result is within ~2.3 ulp (rsqrtf is
+// within 2 ulp, sqrtf exact), inside powf's documented 4 ulp, at ~50 fewer
+// SASS instructions than powf (PERF.md).
 __device__ __forceinline__ float pow_sat(float x) {
   return sqrtf(rsqrtf(rsqrtf(rsqrtf(x))));
 }
@@ -525,200 +525,6 @@ __device__ __forceinline__ void rhs_given_v(const T (&y)[6 * N + 5],
   pll_rates(w, v_q, xpll, dy[6 * N + 3], dy[6 * N + 4]);
 }
 
-// --- the two-lane team ----------------------------------------------------------
-// Two adjacent lanes integrate one env: lane 0 (role Lane{false}) computes the
-// re component of every piece, lane 1 (Lane{true}) the im one, and the two
-// exchange a value where the next piece needs both components.
-
-// the partner lane's value
-__device__ __forceinline__ float xch(float x) {
-  return __shfl_xor_sync(0xffffffffu, x, 1);
-}
-__device__ __forceinline__ df xch(df x) {
-  return df(__shfl_xor_sync(0xffffffffu, x.hi, 1),
-            __shfl_xor_sync(0xffffffffu, x.lo, 1));
-}
-
-// (re, im) from this lane's component and its partner's
-template <class T>
-__device__ __forceinline__ void join(Lane r, T own, T other, T& re, T& im) {
-  re = pick(r, own, other);
-  im = pick(r, other, own);
-}
-
-// The state index of a team lane's slot j (-1 for the pad): component im of
-// the phase currents (j < N), GCC integrators and filter states (j < 3N),
-// then xdc, theta, xpll on lane 0 and xq, vdc, pad on lane 1.
-template <int N>
-__device__ __forceinline__ int state_index(bool im, int j) {
-  if (j < 3 * N) return (j / N) * 2 * N + (im ? N : 0) + j % N;
-  j -= 3 * N;
-  if (im) return j == 0 ? 6 * N + 2 : j == 1 ? 6 * N : -1;
-  return j == 0 ? 6 * N + 1 : j == 1 ? 6 * N + 4 : 6 * N + 3;
-}
-
-// sin and cos of theta on both lanes. float: sincosf on each lane, whose one
-// argument reduction serves both (calling sinf on one lane and cosf on the
-// other would diverge). df: the reduction on both, sin's Taylor polynomial
-// on lane 0 and cos's on lane 1 (the polynomials are the df cost).
-__device__ __forceinline__ void team_sincos(Lane, float x, float& s,
-                                            float& c) {
-  sincos_t(x, &s, &c);
-}
-__device__ __forceinline__ void team_sincos(Lane r, df x, df& s, df& c) {
-  const SinCosArg g = sincos_reduce(x);
-  const df h = sincos_half(g, r.im);
-  df s_, c_;
-  join(r, h, xch(h), s_, c_);
-  sincos_finish(g.k, s_, c_, &s, &c);
-}
-
-// rhs_core.rhs of one DER on a team lane's 3N + 3 slots (state_index): each
-// piece for this lane's role, exchanged with the partner where the next
-// piece needs both components. The scalar chains come in pairs of one
-// function and run side by side: the current limiter (lane 0) with phase 0's
-// modulation limiter (lane 1), then phases 1 and 2's; the anti-windup gate's
-// exp and divide (lane 0) with the PV diode's exp and the DC link's divide
-// (lane 1).
-template <class T, int N>
-__device__ __forceinline__ void rhs_team(Lane r, const T (&ys)[3 * N + 3],
-                                         T rot_re, T rot_im,
-                                         const Feeder<T, N>& fd,
-                                         const Unit<T, N>& w,
-                                         T (&dy)[3 * N + 3]) {
-  const T sc = xch(ys[3 * N + 1]);           // theta <-> vdc
-  const T vdc = pick(r, sc, ys[3 * N + 1]);
-  const T theta = pick(r, ys[3 * N + 1], sc);
-  T i_re[N], i_im[N], ii_re[N], ii_im[N];
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    join(r, ys[k], xch(ys[k]), i_re[k], i_im[k]);
-    ii_re[k] = i_re[k] * w.conn;
-    ii_im[k] = i_im[k] * w.conn;
-  }
-
-  // the PCC voltage (pcc_voltage)
-  const T vgp_re = rot_re * fd.v_g, vgp_im = rot_im * fd.v_g;
-  T v_re[N], v_im[N];
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    T vg_re = vgp_re, vg_im = vgp_im;
-    if constexpr (N != 1) {
-      const T c = grid_source(r, k, vgp_re, vgp_im, rot_re, rot_im, fd,
-                              w.ak_re, w.ak_im);
-      join(r, c, xch(c), vg_re, vg_im);
-    }
-    const T s = pcc_sum(r, vg_re, vg_im, pick(r, ii_re[k], ii_im[k]), fd);
-    T s_re, s_im;
-    join(r, s, xch(s), s_re, s_im);
-    const T v = pcc_node(r, s_re, s_im, fd);
-    join(r, v, xch(v), v_re[k], v_im[k]);
-  }
-  T vp_re = v_re[0], vp_im = v_im[0];
-  if constexpr (N != 1) {
-    T c = lit<T>(0.0);
-#pragma unroll
-    for (int k = 0; k < N; ++k) c = c + vpos_term(r, k, v_re, v_im, w);
-    c = c / lit<T>(N);
-    join(r, c, xch(c), vp_re, vp_im);
-  }
-
-  T vdc_pos;
-  const T kvv = dc_gain(w, vdc, vdc_pos);
-  T m[N];
-#pragma unroll
-  for (int k = 0; k < N; ++k) m[k] = modulation(w, ys[2 * N + k], ys[N + k]);
-
-  T sth, cth;
-  team_sincos(r, theta, sth, cth);
-  const T v_q = pll_error(vp_re, vp_im, sth, cth);
-
-  // p_pcc and the DC loop on lane 0, q_pcc and the reactive loop on lane 1
-  T pq = lit<T>(0.0);
-#pragma unroll
-  for (int k = 0; k < N; ++k)
-    pq = pq + power_term(r, v_re[k], v_im[k], ii_re[k], ii_im[k]);
-  if constexpr (N != 1) pq = pq / lit<T>(N);
-  const T err = pick(r, dc_error(w, vdc, pq), q_error(w, pq));
-  const T raw = current_raw(r, w, err, ys[3 * N]);
-
-  // the limiters: lane 0 the current (id, iq), lane 1 phase 0's
-  // modulation; then phase 1 on lane 0 and phase 2 on lane 1
-  T s_lim, s_m[N], mag;
-  {
-    const T o = xch(pick(r, m[0], raw));
-    const T s = limit(pick(r, raw, o), pick(r, o, m[0]),
-                      pick(r, w.inv_i_max, w.inv_m_max), mag);
-    join(r, s, xch(s), s_lim, s_m[0]);
-    if constexpr (N != 1) {
-      const T o2 = xch(pick(r, m[2], m[1]));
-      T mag2;
-      const T s2 = limit(pick(r, m[1], o2), pick(r, o2, m[2]), w.inv_m_max,
-                         mag2);
-      join(r, s2, xch(s2), s_m[1], s_m[2]);
-    }
-  }
-  T vt[N];
-#pragma unroll
-  for (int k = 0; k < N; ++k) vt[k] = terminal(m[k], s_m[k], kvv);
-  const T ref = raw * s_lim;
-
-  // exp: the anti-windup gate's on lane 0, the PV diode's on lane 1
-  T vdc_v;
-  const T ex = pv_exponent(w, vdc, vdc_v);
-  const T ee = exp_t(pick(r, aw_exponent(mag, w.inv_i_max), ex));
-
-  // divide: the gate on lane 0, the DC link's quotient on lane 1
-  T vt_re[N], vt_im[N];
-#pragma unroll
-  for (int k = 0; k < N; ++k) join(r, vt[k], xch(vt[k]), vt_re[k], vt_im[k]);
-  T p_inv = lit<T>(0.0);
-#pragma unroll
-  for (int k = 0; k < N; ++k)
-    p_inv = p_inv + power_term(Re{}, vt_re[k], vt_im[k], i_re[k], i_im[k]);
-  if constexpr (N != 1) p_inv = p_inv / lit<T>(N);
-  const T p_pv = pv_power(w, ee, vdc_v);
-  const T q = pick(r, lit<T>(1.0), dc_link_num(w, p_pv, p_inv))
-              / pick(r, aw_denominator(ee), dc_link_den(w, vdc_pos));
-  const T aw = w.en * pick(r, q, xch(q));
-
-  // the dq current reference rotated by theta
-  T id_ref, iq_ref;
-  join(r, ref, xch(ref), id_ref, iq_ref);
-  const T idq = cmul(r, id_ref, iq_ref, cth, sth);
-  T idq_re, idq_im;
-  join(r, idq, xch(idq), idq_re, idq_im);
-
-  // rhs_from_algebra on this lane's slots
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    const T i = ys[k], uf = ys[2 * N + k];
-    const T dc = phase_dc(i, pick(r, -i_im[k], i_re[k]), vt[k],
-                          pick(r, v_re[k], v_im[k]), w);
-    dy[k] = current_rate(dc, i, w);
-    dy[N + k] = gcc_rate(uf, w);
-    dy[2 * N + k] = filter_rate(current_ref(r, k, idq_re, idq_im, w), i, uf, w);
-  }
-  dy[3 * N] = loop_rate(r, w, err, aw);
-  T d_x, d_theta;
-  pll_rates(w, v_q, ys[3 * N + 2], d_x, d_theta);
-  dy[3 * N + 1] = pick(r, d_theta, dc_link_rate(w, q, vdc));
-  dy[3 * N + 2] = pick(r, d_x, lit<T>(0.0));
-}
-
-// the substep's two grid phasors on a team: the half-step one (k2, k3) on
-// lane 0, the end one (k4) on lane 1
-template <class T, int N>
-__device__ __forceinline__ void team_phasors(Lane r, T th, T t4,
-                                             const Feeder<T, N>& fd, T& rh_re,
-                                             T& rh_im, T& r4_re, T& r4_im) {
-  T g_re, g_im;
-  grid_rot(pick(r, th, t4), fd, g_re, g_im);
-  join(r, g_re, xch(g_re), rh_re, r4_re);
-  join(r, g_im, xch(g_im), rh_im, r4_im);
-}
-
-// --- the float32 window -------------------------------------------------------
 // The times of substep s's stages: t + h/2 (k2 and k3) and t + h (k4), with
 // t = t0 + f32(s)*h. One expression wherever a phasor's time is computed, so
 // that a phasor computed for substep s on another lane has the same bits.
@@ -730,33 +536,35 @@ __device__ __forceinline__ void stage_times(float t0, int s, float h,
 }
 
 // One float32 control window of n_sub Kahan-compensated RK4 substeps of
-// rhs(ys, rot_re, rot_im, dy) over M slots (an env's n_s states, or a team
-// lane's 3N + 3). phasors(s, rh_re, rh_im, r4_re, r4_im) gives substep s's
-// grid phasors of k2/k3 and of k4; k4's is the next substep's k1 (r1 on
-// entry: t0's), as rhs_core.grid_rot is shared in the plain version. h, h/2
-// and h/6 are rounded once on the host.
+// rhs(ys, rot_re, rot_im, dy). phasors(s, rh_re, rh_im, r4_re, r4_im) gives
+// substep s's grid phasors of k2/k3 and of k4; k4's is the next substep's k1
+// (r1 on entry: t0's), as rhs_core.grid_rot is shared in the plain version.
+// h, h/2 and h/6 are rounded once on the host.
 //
-// The four stages run as a loop (`#pragma unroll 1`), so the code holds one
-// copy of the RHS: written out, the substep was four inlined RHS copies
-// (sincosf, expf, powf, sqrtf and divides with their slow paths each), and
-// the df32 kernel, built the same way, lost half its time to instruction
-// fetch (PERF.md). Every expression keeps the form it had written out
-// (y + c*k, acc + 2*k, the Kahan order), so nvcc pairs the same
-// multiply-adds.
-template <int M, class Rhs, class Phasors>
-__device__ __forceinline__ void rk4_window(float (&y)[M], float r1_re,
+// What bounds K1 and K2 (window.cu, fleet_window.cu) is instruction issue:
+// one substep is ~1600-2500 SASS instructions per env or unit, and a window
+// moves ~268 bytes per env. The four stages are one loop in the source, as
+// the df32 window's (window_df.cu), but nvcc unrolls it: the written-out
+// substep (32-61 KB of code) fits the instruction cache, which the df32
+// one (~210 KB) did not, and rolled (`#pragma unroll 1`) it ran K1 8%
+// slower at one phase: the compiler no longer schedules the phasors'
+// sincosf and one stage's tail under the next stage's work, and with two
+// warps per scheduler that latency shows (PERF.md). Unrolled, the machine
+// code and its results equal the stages written out.
+template <int NS, class Rhs, class Phasors>
+__device__ __forceinline__ void rk4_window(float (&y)[NS], float r1_re,
                                            float r1_im, int n_sub, float h,
                                            float hh, float h6, Rhs rhs,
                                            Phasors phasors) {
-  float c[M];
+  float c[NS];
 #pragma unroll
-  for (int j = 0; j < M; ++j) c[j] = 0.0f;
+  for (int j = 0; j < NS; ++j) c[j] = 0.0f;
   for (int s = 0; s < n_sub; ++s) {
     float rh_re, rh_im, r4_re, r4_im;
     phasors(s, rh_re, rh_im, r4_re, r4_im);
-    float acc[M], ys[M], kv[M];
+    float acc[NS], ys[NS], kv[NS];
 #pragma unroll
-    for (int j = 0; j < M; ++j) ys[j] = y[j];
+    for (int j = 0; j < NS; ++j) ys[j] = y[j];
 #pragma unroll
     for (int st = 0; st < 4; ++st) {
       const float rot_re = st == 0 ? r1_re : st == 3 ? r4_re : rh_re;
@@ -764,20 +572,20 @@ __device__ __forceinline__ void rk4_window(float (&y)[M], float r1_re,
       rhs(ys, rot_re, rot_im, kv);                   // k1 .. k4
       if (st == 0) {
 #pragma unroll
-        for (int j = 0; j < M; ++j) {
+        for (int j = 0; j < NS; ++j) {
           acc[j] = kv[j];
           ys[j] = y[j] + hh * kv[j];
         }
       } else if (st < 3) {
         const float cs = st == 1 ? hh : h;
 #pragma unroll
-        for (int j = 0; j < M; ++j) {
+        for (int j = 0; j < NS; ++j) {
           acc[j] = acc[j] + 2.0f * kv[j];
           ys[j] = y[j] + cs * kv[j];
         }
       } else {
 #pragma unroll
-        for (int j = 0; j < M; ++j) {
+        for (int j = 0; j < NS; ++j) {
           // Kahan step, order fixed: d = delta - c; s = y + d; c = (s - y) - d
           const float d = h6 * (acc[j] + kv[j]) - c[j];
           const float sj = y[j] + d;

@@ -6,18 +6,28 @@
 // (rhs.cuh, restating pvderx_torch/physics/rhs_core.py), exog held constant
 // over the window.
 //
-// What bounds it on this card: arithmetic. One substep is ~923 operations
-// per env for the single-phase model (2371 for three-phase) -- 4 RHS
-// evaluations with sin/cos/exp/pow, 2 grid rotations, the Kahan combine --
-// while the whole window moves ~268 bytes per env (one read of t0, y,
-// p_pack[29], u_pack[15] and one write of y1, all f32). At n_sub = 64 that
-// is ~220 operations per byte, far above the card's float32 ridge point.
+// What bounds it on this card: instruction issue. One substep is ~923
+// operations per env at one phase (2371 at three) -- 4 RHS evaluations
+// with sin/cos/exp, the soft limiters' x^(-1/16), square roots and
+// divides, 2 grid rotations, the Kahan combine -- while the whole window
+// moves ~268 bytes per env (one read of t0, y, p_pack[29], u_pack[15] and
+// one write of y1, all f32). In SASS a substep is 1627 instructions at
+// one phase (3027 at three; 2028 and 3815 with powf), ~1.8 per operation,
+// and at 32768 envs one thread per env gives 7.76 warps per SM: K1 runs
+// at ~1.5x the time the SMs need to issue its instructions, the rest
+// latency that two warps per scheduler cannot hide (PERF.md).
 //
 // What the design does about it: one thread per env holds its 11 (or 23)
 // states, the Kahan carry, the RK4 accumulator and the window-invariant
 // `Prep` in registers, and runs all n_sub substeps without touching device
-// memory: one pass over device memory per window. Occupancy, special-function
-// pressure and sincosf sharing are left for a later change.
+// memory. Fewer instructions: the soft limiter's x^(-1/16) is three rsqrtf
+// and a sqrtf, ~50 SASS instructions fewer than powf, eight times per
+// substep at one phase (rhs.cuh's pow_sat). The RK4 stages are unrolled
+// (rhs.cuh's rk4_window). Two layouts were measured and dropped (PERF.md):
+// the stages rolled into a loop, 8% slower at one phase; a two-lane team
+// per env (lane 0 the re component of every piece, lane 1 the im one, as
+// the df32 window's three-phase kernel), which runs 1.43x (one phase) and
+// 1.33x (three) the instructions per env and was 7% and 40% slower.
 //
 // Layout: y and y1 are [N, n_s] row-major; t0 is [N]; p and u are
 // field-major [29, N] and [15, N] (neighbouring threads read neighbouring
@@ -30,9 +40,6 @@ using namespace pvderx;
 
 constexpr int BLOCK = 64;
 
-// Lanes per env.
-__host__ __device__ constexpr int team(int n_ph) { return n_ph == 1 ? 1 : 1; }
-
 template <int N>
 __global__ void __launch_bounds__(BLOCK)
 window_kernel(const float* __restrict__ y_in, const float* __restrict__ t0_in,
@@ -40,86 +47,47 @@ window_kernel(const float* __restrict__ y_in, const float* __restrict__ t0_in,
               float* __restrict__ y_out, int n, int n_sub, float h, float hh,
               float h6) {
   constexpr int NS = 6 * N + 5;
-  const int e = (blockIdx.x * blockDim.x + threadIdx.x) / team(N);
-  const int ec = min(e, n - 1);
-  auto P = [&](int f) { return p[static_cast<size_t>(f) * n + ec]; };
-  auto U = [&](int f) { return u[static_cast<size_t>(f) * n + ec]; };
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  auto P = [&](int f) { return p[static_cast<size_t>(f) * n + e]; };
+  auto U = [&](int f) { return u[static_cast<size_t>(f) * n + e]; };
 
   Unit<float, N> w;
   load_unit(w, P, U);
   Feeder<float, N> fd;
   load_feeder(fd, w.ak_re, w.ak_im, P, U);
-  const float t0 = t0_in[ec];
+
+  // rhs_core.rhs: the DER's own injection sets its PCC voltage
+  auto rhs = [&](const float (&ys)[NS], float rot_re, float rot_im,
+                 float (&dy)[NS]) {
+    float ii_re[N], ii_im[N], v_re[N], v_im[N];
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      ii_re[k] = ys[k] * w.conn;
+      ii_im[k] = ys[N + k] * w.conn;
+    }
+    pcc_voltage<float, N>(ii_re, ii_im, rot_re, rot_im, fd, w.ak_re, w.ak_im,
+                          v_re, v_im);
+    rhs_given_v<float, N>(ys, v_re, v_im, w, dy);
+  };
+
+  const float t0 = t0_in[e];
+  auto phasors = [&](int s, float& rh_re, float& rh_im, float& r4_re,
+                     float& r4_im) {
+    float th, t4;
+    stage_times(t0, s, h, hh, th, t4);
+    grid_rot(th, fd, rh_re, rh_im);
+    grid_rot(t4, fd, r4_re, r4_im);
+  };
   float r1_re, r1_im;
   grid_rot(t0, fd, r1_re, r1_im);
 
-  if constexpr (team(N) == 1) {
-    // rhs_core.rhs: the DER's own injection sets its PCC voltage
-    auto rhs = [&](const float (&ys)[NS], float rot_re, float rot_im,
-                   float (&dy)[NS]) {
-      float ii_re[N], ii_im[N], v_re[N], v_im[N];
+  float y[NS];
 #pragma unroll
-      for (int k = 0; k < N; ++k) {
-        ii_re[k] = ys[k] * w.conn;
-        ii_im[k] = ys[N + k] * w.conn;
-      }
-      pcc_voltage<float, N>(ii_re, ii_im, rot_re, rot_im, fd, w.ak_re,
-                            w.ak_im, v_re, v_im);
-      rhs_given_v<float, N>(ys, v_re, v_im, w, dy);
-    };
-    auto phasors = [&](int s, float& rh_re, float& rh_im, float& r4_re,
-                       float& r4_im) {
-      float th, t4;
-      stage_times(t0, s, h, hh, th, t4);
-      grid_rot(th, fd, rh_re, rh_im);
-      grid_rot(t4, fd, r4_re, r4_im);
-    };
-    float y[NS];
+  for (int j = 0; j < NS; ++j) y[j] = y_in[static_cast<size_t>(e) * NS + j];
+  rk4_window(y, r1_re, r1_im, n_sub, h, hh, h6, rhs, phasors);
 #pragma unroll
-    for (int j = 0; j < NS; ++j) y[j] = y_in[static_cast<size_t>(ec) * NS + j];
-    rk4_window(y, r1_re, r1_im, n_sub, h, hh, h6, rhs, phasors);
-    if (e < n) {
-#pragma unroll
-      for (int j = 0; j < NS; ++j) y_out[static_cast<size_t>(e) * NS + j] = y[j];
-    }
-  } else {
-    constexpr int M = 3 * N + 3;
-    const Lane r{(threadIdx.x & 1) != 0};   // lane 0 re, lane 1 im
-    auto rhs = [&](const float (&ys)[M], float rot_re, float rot_im,
-                   float (&dy)[M]) {
-      rhs_team<float, N>(r, ys, rot_re, rot_im, fd, w, dy);
-    };
-    auto phasors = [&](int s, float& rh_re, float& rh_im, float& r4_re,
-                       float& r4_im) {
-      float th, t4;
-      stage_times(t0, s, h, hh, th, t4);
-      team_phasors(r, th, t4, fd, rh_re, rh_im, r4_re, r4_im);
-    };
-    float y[M];
-#pragma unroll
-    for (int j = 0; j < M; ++j) {
-      const int s = state_index<N>(r.im, j);
-      y[j] = s < 0 ? 0.0f : y_in[static_cast<size_t>(ec) * NS + s];
-    }
-    rk4_window(y, r1_re, r1_im, n_sub, h, hh, h6, rhs, phasors);
-    if (e < n) {
-#pragma unroll
-      for (int j = 0; j < M; ++j) {
-        const int s = state_index<N>(r.im, j);
-        if (s >= 0) y_out[static_cast<size_t>(e) * NS + s] = y[j];
-      }
-    }
-  }
-}
-
-template <int N>
-void launch(int n, cudaStream_t s, const float* y, const float* t0,
-            const float* p, const float* u, float* out, int n_sub, float h,
-            float hh, float h6) {
-  const long long threads = static_cast<long long>(n) * team(N);
-  const dim3 grid(static_cast<unsigned>((threads + BLOCK - 1) / BLOCK));
-  window_kernel<N><<<grid, BLOCK, 0, s>>>(y, t0, p, u, out, n, n_sub, h, hh,
-                                          h6);
+  for (int j = 0; j < NS; ++j) y_out[static_cast<size_t>(e) * NS + j] = y[j];
 }
 
 }  // namespace
@@ -128,16 +96,21 @@ extern "C" int pvderx_rk4_window(const void* y, const void* t0, const void* p,
                                  const void* u, void* out, int n, int n_ph,
                                  int n_sub, float h, float hh, float h6,
                                  void* stream) {
-  if (n < 1 || n_sub < 1 || (n_ph != 1 && n_ph != 3))
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (n < 1 || n_sub < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((n + BLOCK - 1) / BLOCK), block(BLOCK);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto yf = static_cast<const float*>(y);
   auto tf = static_cast<const float*>(t0);
   auto pf = static_cast<const float*>(p);
   auto uf = static_cast<const float*>(u);
   auto of = static_cast<float*>(out);
-  (n_ph == 1 ? launch<1> : launch<3>)(n, s, yf, tf, pf, uf, of, n_sub, h, hh,
-                                      h6);
+  if (n_ph == 1) {
+    window_kernel<1><<<grid, block, 0, s>>>(yf, tf, pf, uf, of, n, n_sub, h, hh, h6);
+  } else if (n_ph == 3) {
+    window_kernel<3><<<grid, block, 0, s>>>(yf, tf, pf, uf, of, n, n_sub, h, hh, h6);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -29,9 +29,9 @@
 // - The three-phase model runs on a team of two adjacent lanes per env.
 //   Nearly all of the RHS is complex arithmetic on (re, im) pairs: lane 0
 //   computes the re component of every piece, lane 1 the im one, with the
-//   same instructions on their own operands (rhs.cuh's `rhs_team`: the
-//   pieces under a run-time `Lane` role), and the two exchange a df value
-//   (hi, lo: two __shfl_xor_sync) where the next piece needs both. The scalar chains
+//   same instructions on their own operands (rhs.cuh's pieces under a
+//   run-time `Lane` role), and the two exchange a df value (hi, lo: two
+//   __shfl_xor_sync) where the next piece needs both. The scalar chains
 //   come in pairs of one function and run side by side: the current
 //   limiter's |(id, iq)| and soft-limit scale (lane 0) with phase 0's
 //   modulation limiter (lane 1), then phases 1 and 2's; the anti-windup
@@ -60,6 +60,30 @@ namespace {
 using namespace pvderx;
 
 constexpr int BLOCK = 64;
+
+// the partner lane's value
+__device__ __forceinline__ df xch(df x) {
+  return df(__shfl_xor_sync(0xffffffffu, x.hi, 1),
+            __shfl_xor_sync(0xffffffffu, x.lo, 1));
+}
+
+// (re, im) from this lane's component and its partner's
+__device__ __forceinline__ void join(Lane r, df own, df other, df& re,
+                                     df& im) {
+  re = pick(r, own, other);
+  im = pick(r, other, own);
+}
+
+// The state index of a team lane's slot j (-1 for the pad): component im of
+// the phase currents (j < N), GCC integrators and filter states (j < 3N),
+// then xdc, theta, xpll on lane 0 and xq, vdc, pad on lane 1.
+template <int N>
+__device__ __forceinline__ int state_index(bool im, int j) {
+  if (j < 3 * N) return (j / N) * 2 * N + (im ? N : 0) + j % N;
+  j -= 3 * N;
+  if (im) return j == 0 ? 6 * N + 2 : j == 1 ? 6 * N : -1;
+  return j == 0 ? 6 * N + 1 : j == 1 ? 6 * N + 4 : 6 * N + 3;
+}
 
 // n_sub RK4 substeps of rhs(ys, rot_re, rot_im, dy) over a lane's M slots,
 // the four stages as a loop. phasors(t + h/2, t + h, rh, r4) gives the grid
@@ -168,13 +192,143 @@ window_df_kernel(const float* __restrict__ y_hi, const float* __restrict__ y_lo,
   } else {
     constexpr int M = 3 * N + 3;
     const Lane r{(threadIdx.x & 1) != 0};   // lane 0 re, lane 1 im
-    // rhs_core.rhs on this lane's slots (rhs.cuh's rhs_team)
+    // rhs_core.rhs on this lane's slots: each piece for this lane's role,
+    // exchanged with the partner where the next piece needs both components
     auto rhs = [&](const df (&ys)[M], df rot_re, df rot_im, df (&dy)[M]) {
-      rhs_team<df, N>(r, ys, rot_re, rot_im, fd, w, dy);
+      const df sc = xch(ys[3 * N + 1]);           // theta <-> vdc
+      const df vdc = pick(r, sc, ys[3 * N + 1]);
+      const df theta = pick(r, ys[3 * N + 1], sc);
+      df i_re[N], i_im[N], ii_re[N], ii_im[N];
+#pragma unroll
+      for (int k = 0; k < N; ++k) {
+        join(r, ys[k], xch(ys[k]), i_re[k], i_im[k]);
+        ii_re[k] = i_re[k] * w.conn;
+        ii_im[k] = i_im[k] * w.conn;
+      }
+
+      // the PCC voltage (pcc_voltage)
+      const df vgp_re = rot_re * fd.v_g, vgp_im = rot_im * fd.v_g;
+      df v_re[N], v_im[N];
+#pragma unroll
+      for (int k = 0; k < N; ++k) {
+        const df c = grid_source(r, k, vgp_re, vgp_im, rot_re, rot_im, fd,
+                                 w.ak_re, w.ak_im);
+        df vg_re, vg_im;
+        join(r, c, xch(c), vg_re, vg_im);
+        const df s =
+            pcc_sum(r, vg_re, vg_im, pick(r, ii_re[k], ii_im[k]), fd);
+        df s_re, s_im;
+        join(r, s, xch(s), s_re, s_im);
+        const df v = pcc_node(r, s_re, s_im, fd);
+        join(r, v, xch(v), v_re[k], v_im[k]);
+      }
+      df vp_re, vp_im;
+      {
+        df c = lit<df>(0.0);
+#pragma unroll
+        for (int k = 0; k < N; ++k) c = c + vpos_term(r, k, v_re, v_im, w);
+        c = c / lit<df>(N);
+        join(r, c, xch(c), vp_re, vp_im);
+      }
+
+      df vdc_pos;
+      const df kvv = dc_gain(w, vdc, vdc_pos);
+      df m[N];
+#pragma unroll
+      for (int k = 0; k < N; ++k)
+        m[k] = modulation(w, ys[2 * N + k], ys[N + k]);
+
+      // sin(theta)'s polynomial on lane 0, cos(theta)'s on lane 1
+      df sth, cth;
+      {
+        const SinCosArg g = sincos_reduce(theta);
+        const df c = sincos_half(g, r.im);
+        df s_, c_;
+        join(r, c, xch(c), s_, c_);
+        sincos_finish(g.k, s_, c_, &sth, &cth);
+      }
+      const df v_q = pll_error(vp_re, vp_im, sth, cth);
+
+      // p_pcc and the DC loop on lane 0, q_pcc and the reactive loop on lane 1
+      df pq = lit<df>(0.0);
+#pragma unroll
+      for (int k = 0; k < N; ++k)
+        pq = pq + power_term(r, v_re[k], v_im[k], ii_re[k], ii_im[k]);
+      pq = pq / lit<df>(N);
+      const df err = pick(r, dc_error(w, vdc, pq), q_error(w, pq));
+      const df raw = current_raw(r, w, err, ys[3 * N]);
+
+      // the limiters: lane 0 the current (id, iq), lane 1 phase 0's
+      // modulation; then phase 1 on lane 0 and phase 2 on lane 1
+      df s_lim, s_m[N], mag;
+      {
+        const df o = xch(pick(r, m[0], raw));
+        const df s = limit(pick(r, raw, o), pick(r, o, m[0]),
+                           pick(r, w.inv_i_max, w.inv_m_max), mag);
+        join(r, s, xch(s), s_lim, s_m[0]);
+        const df o2 = xch(pick(r, m[2], m[1]));
+        df mag2;
+        const df s2 = limit(pick(r, m[1], o2), pick(r, o2, m[2]), w.inv_m_max,
+                            mag2);
+        join(r, s2, xch(s2), s_m[1], s_m[2]);
+      }
+      df vt[N];
+#pragma unroll
+      for (int k = 0; k < N; ++k) vt[k] = terminal(m[k], s_m[k], kvv);
+      const df ref = raw * s_lim;
+
+      // exp: the anti-windup gate's on lane 0, the PV diode's on lane 1
+      df vdc_v;
+      const df ex = pv_exponent(w, vdc, vdc_v);
+      const df ee = exp_t(pick(r, aw_exponent(mag, w.inv_i_max), ex));
+
+      // divide: the gate on lane 0, the DC link's quotient on lane 1
+      df vt_re[N], vt_im[N];
+#pragma unroll
+      for (int k = 0; k < N; ++k)
+        join(r, vt[k], xch(vt[k]), vt_re[k], vt_im[k]);
+      df p_inv = lit<df>(0.0);
+#pragma unroll
+      for (int k = 0; k < N; ++k)
+        p_inv =
+            p_inv + power_term(Re{}, vt_re[k], vt_im[k], i_re[k], i_im[k]);
+      p_inv = p_inv / lit<df>(N);
+      const df p_pv = pv_power(w, ee, vdc_v);
+      const df q = pick(r, lit<df>(1.0), dc_link_num(w, p_pv, p_inv))
+                   / pick(r, aw_denominator(ee), dc_link_den(w, vdc_pos));
+      const df aw = w.en * pick(r, q, xch(q));
+
+      // the dq current reference rotated by theta
+      df id_ref, iq_ref;
+      join(r, ref, xch(ref), id_ref, iq_ref);
+      const df idq = cmul(r, id_ref, iq_ref, cth, sth);
+      df idq_re, idq_im;
+      join(r, idq, xch(idq), idq_re, idq_im);
+
+      // rhs_from_algebra on this lane's slots
+#pragma unroll
+      for (int k = 0; k < N; ++k) {
+        const df i = ys[k], uf = ys[2 * N + k];
+        const df dc = phase_dc(i, pick(r, -i_im[k], i_re[k]), vt[k],
+                               pick(r, v_re[k], v_im[k]), w);
+        dy[k] = current_rate(dc, i, w);
+        dy[N + k] = gcc_rate(uf, w);
+        dy[2 * N + k] =
+            filter_rate(current_ref(r, k, idq_re, idq_im, w), i, uf, w);
+      }
+      dy[3 * N] = loop_rate(r, w, err, aw);
+      df d_x, d_theta;
+      pll_rates(w, v_q, ys[3 * N + 2], d_x, d_theta);
+      dy[3 * N + 1] = pick(r, d_theta, dc_link_rate(w, q, vdc));
+      dy[3 * N + 2] = pick(r, d_x, lit<df>(0.0));
     };
+    // the half-step phasor (k2, k3) on lane 0, the end one (k4) on lane 1
     auto phasors = [&](df th, df t4, df& rh_re, df& rh_im, df& r4_re,
                        df& r4_im) {
-      team_phasors(r, th, t4, fd, rh_re, rh_im, r4_re, r4_im);
+      df g_re, g_im;
+      grid_rot(pick(r, th, t4), fd, g_re, g_im);
+      join(r, g_re, xch(g_re), rh_re, r4_re);
+      join(r, g_im, xch(g_im), rh_im, r4_im);
     };
     df y[M];
 #pragma unroll
