@@ -62,7 +62,7 @@ __device__ __forceinline__ void sincos_t(float x, float* s, float* c) {
 // within 2 ulp, sqrtf exact), inside powf's documented 4 ulp, at ~50 fewer
 // SASS instructions than powf (PERF.md).
 __device__ __forceinline__ float pow_sat(float x) {
-  return sqrtf(rsqrtf(rsqrtf(rsqrtf(x))));
+  return exp2f(log2f(x) * -0.0625f);
 }
 __device__ __forceinline__ float max_t(float a, float b) { return fmaxf(a, b); }
 __device__ __forceinline__ float min_t(float a, float b) { return fminf(a, b); }
