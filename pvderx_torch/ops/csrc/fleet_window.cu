@@ -20,14 +20,14 @@
 // What the design does about it: one thread per (env, unit), so a thread
 // keeps the single-DER kernel's register footprint (one unit's state, Kahan
 // carry, accumulator and Prep) and the window runs without touching device
-// memory; and it issues fewer instructions per unit (2530 per substep, was
+// memory; and it issues fewer instructions per unit (2587 per substep, was
 // 3014):
 // - The grid phasors, the same for every unit of an env, are computed once
 //   per env: the lanes of an env's group take the substeps in turns (below),
 //   2 sincosf per lane per g substeps instead of 2 per substep.
-// - The soft limiters' x^(-1/16) is three rsqrtf and a sqrtf, not powf
-//   (rhs.cuh's pow_sat), and the mean injection multiplies the sum by a
-//   hoisted 1/M (exact when M is a power of two) instead of two divides.
+// - The soft limiters' x^(-1/16) is exp2f and log2f, not powf (rhs.cuh's
+//   pow_sat), and the mean injection multiplies the sum by a hoisted 1/M
+//   (exact when M is a power of two) instead of two divides.
 // The units of one env sit in adjacent lanes: a group of G lanes, G
 // the next power of two >= M (G <= 32), so the M-sum of the 2*n_ph injected
 // current components is a __shfl_xor_sync butterfly inside the warp. When

@@ -56,11 +56,12 @@ __device__ __forceinline__ float exp_t(float x) { return expf(x); }
 __device__ __forceinline__ void sincos_t(float x, float* s, float* c) {
   sincosf(x, s, c);
 }
-// x^(-1/16), x in [1, 1 + 8^16] (the soft limiter's 1 + r^16): three
-// rsqrtf give x^(-1/8), a sqrtf its square root. Each root halves the
-// relative error it is given, so the result is within ~2.3 ulp (rsqrtf is
-// within 2 ulp, sqrtf exact), inside powf's documented 4 ulp, at ~50 fewer
-// SASS instructions than powf (PERF.md).
+// x^(-1/16), x in [1, 1 + 8^16] (the soft limiter's 1 + r^16), as
+// 2^(-log2(x)/16): the scaling by 1/16 is exact, log2f's 1 ulp is at most
+// 2^-22 absolute after it (log2(x) <= 48), ~1.4 ulp of the result, and
+// exp2f adds its 2 ulp: within ~3.4 ulp, inside powf's documented 4 ulp.
+// Two special-function operations in series where powf had a ~50
+// instruction sequence; K1's limiter chain is latency-bound (PERF.md).
 __device__ __forceinline__ float pow_sat(float x) {
   return exp2f(log2f(x) * -0.0625f);
 }

@@ -11,19 +11,20 @@
 // with sin/cos/exp, the soft limiters' x^(-1/16), square roots and
 // divides, 2 grid rotations, the Kahan combine -- while the whole window
 // moves ~268 bytes per env (one read of t0, y, p_pack[29], u_pack[15] and
-// one write of y1, all f32). In SASS a substep is 1627 instructions at
-// one phase (3027 at three; 2028 and 3815 with powf), ~1.8 per operation,
-// and at 32768 envs one thread per env gives 7.76 warps per SM: K1 runs
-// at ~1.5x the time the SMs need to issue its instructions, the rest
-// latency that two warps per scheduler cannot hide (PERF.md).
+// one write of y1, all f32). In SASS a substep is 1712 instructions at
+// one phase (3186 at three), ~1.9 per operation, and at 32768 envs one
+// thread per env gives 7.76 warps per SM, two per scheduler: K1 runs at
+// ~1.3x the time the SMs need to issue its static substep loop, the rest
+// the latency of its dependent chains, which two warps per scheduler
+// cannot hide (PERF.md).
 //
 // What the design does about it: one thread per env holds its 11 (or 23)
 // states, the Kahan carry, the RK4 accumulator and the window-invariant
 // `Prep` in registers, and runs all n_sub substeps without touching device
-// memory. Fewer instructions: the soft limiter's x^(-1/16) is three rsqrtf
-// and a sqrtf, ~50 SASS instructions fewer than powf, eight times per
-// substep at one phase (rhs.cuh's pow_sat). The RK4 stages are unrolled
-// (rhs.cuh's rk4_window). Two layouts were measured and dropped (PERF.md):
+// memory. A shorter chain: the soft limiters' x^(-1/16) is exp2f and
+// log2f, not powf's ~50-instruction sequence, eight times per substep at
+// one phase (rhs.cuh's pow_sat). The RK4 stages are unrolled (rhs.cuh's
+// rk4_window). Two layouts were measured and dropped (PERF.md):
 // the stages rolled into a loop, 8% slower at one phase; a two-lane team
 // per env (lane 0 the re component of every piece, lane 1 the im one, as
 // the df32 window's three-phase kernel), which runs 1.43x (one phase) and
