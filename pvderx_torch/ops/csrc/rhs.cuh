@@ -544,51 +544,56 @@ __device__ __forceinline__ void stage_times(float t0, int s, float h,
 //
 // What bounds K1 and K2 (window.cu, fleet_window.cu) is instruction issue
 // and latency: one substep is ~1700-2600 SASS instructions per env or
-// unit, and a window moves ~268 bytes per env. The four stages stay
-// written out: the substep (27-51 KB of code) fits the instruction cache,
-// which the df32 window's (~210 KB, window_df.cu) did not, and rolled into
-// a loop (`#pragma unroll 1`) they ran K1 8% slower at one phase: the
-// compiler no longer schedules the phasors' sincosf and one stage's tail
-// under the next stage's work, and with two warps per scheduler that
-// latency shows (PERF.md).
+// unit, and a window moves ~268 bytes per env. The four stages are one
+// loop in the source, as the df32 window's (window_df.cu), but nvcc
+// unrolls it: the written-out substep (27-51 KB of code) fits the
+// instruction cache, which the df32 one (~210 KB) did not, and rolled
+// (`#pragma unroll 1`) it ran K1 8% slower at one phase: the compiler no
+// longer schedules the phasors' sincosf and one stage's tail under the
+// next stage's work, and with two warps per scheduler that latency shows
+// (PERF.md).
 template <int NS, class Rhs, class Phasors>
 __device__ __forceinline__ void rk4_window(float (&y)[NS], float r1_re,
                                            float r1_im, int n_sub, float h,
                                            float hh, float h6, Rhs rhs,
                                            Phasors phasors) {
-  float c[NS], acc[NS], ys[NS], kv[NS];
+  float c[NS];
 #pragma unroll
   for (int j = 0; j < NS; ++j) c[j] = 0.0f;
-
   for (int s = 0; s < n_sub; ++s) {
     float rh_re, rh_im, r4_re, r4_im;
     phasors(s, rh_re, rh_im, r4_re, r4_im);
-    rhs(y, r1_re, r1_im, kv);                            // k1
+    float acc[NS], ys[NS], kv[NS];
 #pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      acc[j] = kv[j];
-      ys[j] = y[j] + hh * kv[j];
-    }
-    rhs(ys, rh_re, rh_im, kv);                           // k2
+    for (int j = 0; j < NS; ++j) ys[j] = y[j];
 #pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      acc[j] = acc[j] + 2.0f * kv[j];
-      ys[j] = y[j] + hh * kv[j];
-    }
-    rhs(ys, rh_re, rh_im, kv);                           // k3
+    for (int st = 0; st < 4; ++st) {
+      const float rot_re = st == 0 ? r1_re : st == 3 ? r4_re : rh_re;
+      const float rot_im = st == 0 ? r1_im : st == 3 ? r4_im : rh_im;
+      rhs(ys, rot_re, rot_im, kv);                   // k1 .. k4
+      if (st == 0) {
 #pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      acc[j] = acc[j] + 2.0f * kv[j];
-      ys[j] = y[j] + h * kv[j];
-    }
-    rhs(ys, r4_re, r4_im, kv);                           // k4
+        for (int j = 0; j < NS; ++j) {
+          acc[j] = kv[j];
+          ys[j] = y[j] + hh * kv[j];
+        }
+      } else if (st < 3) {
+        const float cs = st == 1 ? hh : h;
 #pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      // Kahan step, order fixed: d = delta - c; s = y + d; c = (s - y) - d
-      const float d = h6 * (acc[j] + kv[j]) - c[j];
-      const float sj = y[j] + d;
-      c[j] = (sj - y[j]) - d;
-      y[j] = sj;
+        for (int j = 0; j < NS; ++j) {
+          acc[j] = acc[j] + 2.0f * kv[j];
+          ys[j] = y[j] + cs * kv[j];
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < NS; ++j) {
+          // Kahan step, order fixed: d = delta - c; s = y + d; c = (s - y) - d
+          const float d = h6 * (acc[j] + kv[j]) - c[j];
+          const float sj = y[j] + d;
+          c[j] = (sj - y[j]) - d;
+          y[j] = sj;
+        }
+      }
     }
     r1_re = r4_re;
     r1_im = r4_im;

@@ -23,8 +23,8 @@
 // `Prep` in registers, and runs all n_sub substeps without touching device
 // memory. A shorter chain: the soft limiters' x^(-1/16) is exp2f and
 // log2f, not powf's ~50-instruction sequence, eight times per substep at
-// one phase (rhs.cuh's pow_sat). The RK4 stages stay written out
-// (rhs.cuh's rk4_window). Two layouts were measured and dropped (PERF.md):
+// one phase (rhs.cuh's pow_sat). The RK4 stages are unrolled (rhs.cuh's
+// rk4_window). Two layouts were measured and dropped (PERF.md):
 // the stages rolled into a loop, 8% slower at one phase; a two-lane team
 // per env (lane 0 the re component of every piece, lane 1 the im one, as
 // the df32 window's three-phase kernel), which runs 1.43x (one phase) and

@@ -145,3 +145,28 @@ def test_torch_chip_smoke_trace_launch_reads_warps():
     ragged["traceEvents"][0]["args"]["block"] = [80, 1, 1]
     assert trace_launch(ragged)["warps"] == 9
     assert trace_launch({"traceEvents": []}) is None
+
+
+def test_torch_chip_smoke_kernel_shapes_are_the_main_paths():
+    from chip_smoke import FLEET_ENVS, FLEET_M, N_ENVS, N_SUB
+    from profile_torch_step import kernel_shapes
+    from pvderx_torch.ops.dualfloat import OPS_PER_SUBSTEP_DF
+    from pvderx_torch.ops.window import OPS_PER_SUBSTEP
+
+    shapes = kernel_shapes("cpu")
+    assert list(shapes) == ["k1_preset10", "k1_preset50", "k2_config5",
+                            "k3_preset10", "k3_preset50"]
+    ops = {k: v[1] for k, v in shapes.items()}
+    assert ops["k1_preset10"] == OPS_PER_SUBSTEP[1] * N_SUB * N_ENVS
+    assert ops["k1_preset50"] == OPS_PER_SUBSTEP[3] * N_SUB * N_ENVS
+    assert ops["k2_config5"] == (OPS_PER_SUBSTEP[1] * N_SUB * FLEET_ENVS
+                                 * FLEET_M)
+    assert ops["k3_preset50"] == OPS_PER_SUBSTEP_DF[3] * N_SUB * N_ENVS
+    call = shapes["k2_config5"][0]
+    y = call.args[0]
+    assert tuple(y.shape) == (FLEET_ENVS, FLEET_M, 11)
+    assert call.keywords == dict(n_ph=1, m=FLEET_M, n_sub=N_SUB,
+                                 dt=1.0 / 60.0)
+    y_hi, y_lo = shapes["k3_preset50"][0].args[:2]
+    assert tuple(y_hi.shape) == tuple(y_lo.shape) == (N_ENVS, 23)
+    assert bool((y_lo != 0).any())
