@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive pvderx_torch's main path on one NVIDIA GPU and check it.
+"""Drive pvderx_torch's paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -28,8 +28,8 @@ Phases, one line each (a failing phase raises, so the script exits non-zero):
               version: config 5's shape (N=4096, M=16, insolation spread),
               preset 50 unbalanced at M=4, per-unit disconnect/cessation, a
               ragged N=1000 at M=3, M=40 (more than a warp), M=300 (more
-              than 256 threads per env) and M=1 (also against K1): max abs
-              error <= 5e-6 per window, one launch each.
+              than 256 threads per env) and M=1: max abs error <= 5e-6 per
+              window, one launch each; at M=1 it must equal K1 bit for bit.
 8. fleet_gate — the f32 fleet kernel vs the coupled float64 LSODA truth on
               the fleet gate scenario (M=16, n_sub=64, 36 windows): <= 4e-6.
 9. fleet_main — BASELINE config 5 at full width (preset 10, f32, n_sub=64,
@@ -44,17 +44,18 @@ Phases, one line each (a failing phase raises, so the script exits non-zero):
               32768-env case at the main path's n_sub=64, the others at
               n_sub=8 with dt=DT*8/64 (the main path's h; the plain version
               is tens of thousands of tiny torch kernels per RHS
-              evaluation): max abs error on hi + lo <= 1e-9, one launch
-              each, every output |lo| <= ulp(hi)/2.
+              evaluation): hi + lo equal bit for bit (max abs error 0.0),
+              one launch each, every output |lo| <= ulp(hi)/2.
 11. df_f64  — K3 against the float64 RK4 window (the oracle's
               `rk4_window_np`) on the six cases at 4 envs each, n_sub=64,
               the same f32-rounded inputs, lo = 0 on input: <= 1e-10. The f32
               kernel (K1) on the same inputs must miss that bound: this
               phase, not the gate, tells the tiers apart.
-12. df_gate — K3 on the gate scenario at presets 10 and 50, n_sub=64, lo
-              carried from 0, against the float64 LSODA truth: <= 1e-6 (the
-              tier's contract; RK4's truncation error dominates it, so K1
-              reads about the same).
+12. df_gate — K3 on the gate scenario at presets 10 and 50, n_sub=64, and
+              at preset 50, n_sub=80 (the reference's setting, its figure
+              printed beside), lo carried from 0, against the float64 LSODA
+              truth: <= 1e-6 (the tier's contract; RK4's truncation error
+              dominates it, so K1 reads about the same).
 13. df_main — the df32 tier (`make_batch_fns_df`) at full width (preset 10,
               f32, n_sub=64, 32768 envs, zero-action policy): reset,
               warm-up, best of two 600-step chunks, the linearity check; K3
@@ -62,10 +63,31 @@ Phases, one line each (a failing phase raises, so the script exits non-zero):
               alive; K3, K1 and the plain df32 version ms per call at the
               same inputs and n_sub; K3 at preset 50 (three-phase), 32768
               envs, n_sub=64, on `df_inputs`.
+14. ppo_main — PPO (`pvderx_torch.learn`) on the single-DER env at the
+              reference's learner benchmark config (preset 10, f32,
+              n_sub=64, 16384 envs, rollout 16, 4 epochs x 4 minibatches,
+              hidden (128, 128)): reset, one warm-up and 5 timed train
+              steps; env-steps/s, the collect/update split (CUDA events),
+              loss, entropy and reward_mean finite; K1 launches == env
+              steps (16 per train step).
+15. fleet_ppo — PPO on BASELINE config 5 (2048 envs x 16 units, aggregate),
+              then in per-unit mode (obs 13 + 64, the factored 16 x 5
+              head): warm-up + 5 timed train steps each; K2 launches ==
+              env steps in each.
+16. dqn_main — DQN at 4096 envs (rollout 4, 4 updates of batch 1024,
+              capacity 262144): warm-up + 5 timed train steps through K1.
+17. sac_main — SAC on the continuous env at the same widths through K1.
+18. learn_gates — the four seeded gates of tests/test_learning.py with the
+              port's learners (same tasks, budgets, hidden (32, 32) and
+              margins): PPO on the config-3 anomaly task > random + 0.02,
+              DQN > random + 0.012, SAC (dq 0.15 / dv 0.06) > random +
+              0.015, per-unit fleet PPO at M = 4 > uniform + 0.008; a miss
+              raises once all four have printed.
 
 Then the kernel table as one JSON line (each kernel with its bound and its
-lane-issue bound: operations / (132 SMs * 128 FP32 lanes * max SM clock)),
-the card line, and the device line.
+lane-issue bound: operations / (132 SMs * 128 FP32 lanes * max SM clock),
+and the launches of the learner phases), the card line, and the device
+line.
 Needs one CUDA card; imports torch, numpy, scipy and pvderx_torch only.
 """
 from __future__ import annotations
@@ -81,7 +103,6 @@ import torch
 
 KERNEL_TOL = 5e-6        # kernel vs plain, one window, f32
 GATE_TOL = 4e-6          # f32 kernel vs float64 LSODA truth, gate scenario
-DF_TOL = 1e-9            # df32 kernel vs plain df32, one window, hi + lo
 # df32 kernel vs float64 RK4, one window: the df32 noise reads ~1e-13 and
 # the f32 kernel's ~1e-7 at these inputs (CPU rehearsal of the plain versions)
 DF_F64_TOL = 1e-10
@@ -90,6 +111,12 @@ DF_CHECK_SUB = 8         # substeps of the df32 comparisons, at the main h
 N_ENVS = 32768
 FLEET_ENVS, FLEET_M = 4096, 16   # BASELINE config 5
 N_SUB = 64
+# (preset, n_sub) of the df32 gate: both presets at the main path's n_sub,
+# and preset 50 at n_sub=80, the setting of the reference's figure
+# (benchmarks/DUALFLOAT.json df32_max_abs_err_preset50, measured by
+# benchmarks/dualfloat_study.py at "preset 50 at its n_sub=80 knee")
+DF_GATE_CASES = (("10", N_SUB), ("50", N_SUB), ("50", 80))
+DF_GATE_REFERENCE = {("50", 80): 3.228964920998223e-07}
 WARM_STEPS = 60
 CHUNK_STEPS = 600        # = the episode horizon: truncation and autoreset fire
 DT = 1.0 / 60.0
@@ -191,6 +218,13 @@ def check_kernel(device, cases=KERNEL_CASES, n_sub=N_SUB):
             raise AssertionError(f"launch counter moved by {moved}, not 1")
         worst = max(worst, err)
     return worst
+
+
+def require_bitwise(what: str, err: float) -> None:
+    """Raise unless ``err`` reads exactly 0.0: a kernel held bit for bit to
+    another (K2 at M=1 to K1, K3 to its plain df32 version)."""
+    if err != 0.0:
+        raise AssertionError(f"{what}: {err!r}, not bitwise equal (0.0)")
 
 
 @functools.cache
@@ -421,10 +455,12 @@ def check_fleet_kernel(device, cases=FLEET_CASES, n_sub=N_SUB):
             extra["vs_k1"] = float((out[:, 0] - k1).abs().max())
         phase("fleet_kernel", case=name, n=n, m=m, n_ph=n_ph,
               max_abs_err=err, tol=KERNEL_TOL, launches=moved, **extra)
-        for what, e in (("plain", err), *extra.items()):
-            if not (np.isfinite(e) and e <= KERNEL_TOL):
-                raise AssertionError(
-                    f"fleet kernel vs {what} {name}: {e:.3e} > {KERNEL_TOL}")
+        if not (np.isfinite(err) and err <= KERNEL_TOL):
+            raise AssertionError(
+                f"fleet kernel vs plain {name}: {err:.3e} > {KERNEL_TOL}")
+        if "vs_k1" in extra:
+            require_bitwise(f"fleet kernel at M=1 vs K1 {name}",
+                            extra["vs_k1"])
         if cuda and moved != 1:
             raise AssertionError(f"fleet launch counter moved by {moved}, not 1")
         worst = max(worst, err)
@@ -593,10 +629,9 @@ def check_df_kernel(device, cases=DF_CASES, n_sub=DF_CHECK_SUB,
         err = _df_err(hi, lo, ref_hi, ref_lo)
         normal = _lo_normalized(hi, lo)
         phase("df_kernel", case=name, n=n, n_ph=n_ph, n_sub=sub,
-              max_abs_err=err, tol=DF_TOL, launches=moved,
+              max_abs_err=err, tol=0.0, launches=moved,
               lo_normalized=normal, max_abs_lo=float(lo.abs().max()))
-        if not (np.isfinite(err) and err <= DF_TOL):
-            raise AssertionError(f"df32 kernel vs plain {name}: {err:.3e} > {DF_TOL}")
+        require_bitwise(f"df32 kernel vs plain {name}", err)
         if not normal:
             raise AssertionError(f"df32 kernel {name}: |lo| > ulp(hi)/2")
         if cuda and moved != 1:
@@ -648,17 +683,18 @@ def check_df_f64(device, cases=KERNEL_CASES, n=4, n_sub=N_SUB):
     return worst, worst32
 
 
-def check_df_gate(device, presets=("10", "50"), n_steps=120, n=128,
-                  n_sub=N_SUB):
+def check_df_gate(device, cases=DF_GATE_CASES, n_steps=120, n=128):
     """Phase 12: the df32 kernel vs the float64 LSODA truth on the gate
-    scenario, y_lo carried from 0 (y0 is an f32 input by contract)."""
+    scenario, y_lo carried from 0 (y0 is an f32 input by contract), at each
+    (preset, n_sub) of ``cases``; the reference's figure is printed beside
+    the reading taken at its setting."""
     from pvderx_torch import make_params, oracle
     from pvderx_torch.ops.dualfloat import rk4_window_batch_df
     from pvderx_torch.ops.window import P_FIELDS, U_FIELDS
 
     f = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32, device=device)
     errs = {}
-    for preset in presets:
+    for preset, n_sub in cases:
         p = make_params(preset)
         truth, truth_s = _gate_truth(preset, n_steps)
         pp = f([np.full(n, getattr(p, k)) for k in P_FIELDS])
@@ -673,11 +709,13 @@ def check_df_gate(device, presets=("10", "50"), n_steps=120, n=128,
             got = (y_hi.double() + y_lo.double()).cpu().numpy()
             err = max(err, float(np.abs(got - truth[k + 1]).max()))
         phase("df_gate", preset=preset, n_sub=n_sub, windows=n_steps,
-              max_abs_err=err, bound=DF_GATE_TOL, lsoda_truth_s=truth_s)
+              max_abs_err=err, bound=DF_GATE_TOL, lsoda_truth_s=truth_s,
+              reference=DF_GATE_REFERENCE.get((preset, n_sub)))
         if not err <= DF_GATE_TOL:
             raise AssertionError(
-                f"df32 gate preset {preset}: {err:.3e} > {DF_GATE_TOL}")
-        errs[preset] = err
+                f"df32 gate preset {preset} n_sub {n_sub}: {err:.3e} > "
+                f"{DF_GATE_TOL}")
+        errs[(preset, n_sub)] = err
     return errs
 
 
@@ -766,6 +804,170 @@ def run_df_main(device, card, n_envs=N_ENVS, n_sub=N_SUB, warm=WARM_STEPS,
                 preset50_ms=k3_50_ms)
 
 
+# The learners (pvderx_torch.learn) at the reference's learner-benchmark
+# widths (benchmarks/learners.py): PPO at 16384 envs, DQN and SAC at 4096,
+# fleet PPO at 2048 envs x 16 units; each train step's rollout is one K1 (K2
+# on the fleet) launch per env step.
+PPO_ENVS = 16384
+OFFPOLICY_ENVS = 4096
+FLEET_PPO_ENVS = 2048
+LEARN_TIMED = 5          # timed train steps after one warm-up step
+
+
+def _time_train(ts, runner, n_steps, device, metric):
+    """``n_steps`` train steps, their two phases (``ts.collect``,
+    ``ts.update``) between CUDA events (host clocks on the CPU). Returns
+    (runner, metrics of the last step, host seconds, collect ms, update ms),
+    the ms summed over the steps."""
+    cuda = torch.device(device).type == "cuda"
+
+    def mark():
+        if not cuda:
+            return time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def ms(a, b):
+        return a.elapsed_time(b) if cuda else 1e3 * (b - a)
+
+    marks = []
+    t = time.perf_counter()
+    for _ in range(n_steps):
+        m0 = mark()
+        runner, rollout = ts.collect(runner)
+        m1 = mark()
+        runner, m = ts.update(runner, rollout)
+        marks.append((m0, m1, mark()))
+    float(m[metric])                     # scalar fetch: the sync
+    host_s = time.perf_counter() - t
+    _sync(device)
+    return (runner, m, host_s, sum(ms(a, b) for a, b, _ in marks),
+            sum(ms(b, c) for _, b, c in marks))
+
+
+def run_learner(name, card, device, make, cfg, lcfg, n_envs, kernel,
+                metric="loss", timed=LEARN_TIMED):
+    """One learner at full width: reset, a warm-up train step, then
+    ``timed`` train steps; ``kernel``'s launches must equal the env steps
+    taken and every metric be finite. Prints one line; returns it."""
+    cuda = torch.device(device).type == "cuda"
+    gen = torch.Generator(device=device).manual_seed(0)
+    init_runner, ts, _ = make(cfg, lcfg, hidden=(128, 128))
+    _zero_counts()
+    t = time.perf_counter()
+    runner = init_runner(n_envs, gen)
+    runner, m = ts(runner)
+    float(m[metric])
+    warm_s = time.perf_counter() - t
+    runner, m, host_s, collect_ms, update_ms = _time_train(
+        ts, runner, timed, device, metric)
+    launches = kernel.launches
+    steps = (1 + timed) * lcfg.rollout_len
+    metrics = {k: float(v) for k, v in m.items()}
+    out = dict(card=card, n_envs=n_envs, rollout_len=lcfg.rollout_len,
+               timed_train_steps=timed, reset_and_warm_s=warm_s,
+               env_steps_per_s=n_envs * lcfg.rollout_len * timed / host_s,
+               train_step_ms=1e3 * host_s / timed,
+               collect_ms_per_train_step=collect_ms / timed,
+               update_ms_per_train_step=update_ms / timed,
+               launches=launches, env_steps=steps, metrics=metrics)
+    phase(name, **out)
+    if cuda and launches != steps:
+        raise AssertionError(f"{name}: kernel launches {launches} != env "
+                             f"steps {steps}")
+    if not all(np.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"{name}: non-finite metrics {metrics}")
+    return out
+
+
+def run_ppo_main(device, card, n_envs=PPO_ENVS, n_sub=N_SUB,
+                 timed=LEARN_TIMED):
+    """Phase 14: PPO on the single-DER env at the reference's learner
+    benchmark config (preset 10, f32, 16 steps x 4 epochs x 4 minibatches,
+    hidden (128, 128)) through K1."""
+    from pvderx_torch.env import make_env_config
+    from pvderx_torch.learn import PPOConfig, make_ppo
+    from pvderx_torch.ops.window import rk4_window_batch
+
+    cfg = make_env_config("10", dtype=torch.float32, n_sub=n_sub,
+                          device=device)
+    return run_learner("ppo_main", card, device, make_ppo, cfg,
+                       PPOConfig(rollout_len=16, n_epochs=4, n_minibatch=4),
+                       n_envs, rk4_window_batch, timed=timed)
+
+
+def run_fleet_ppo(device, card, n_envs=FLEET_PPO_ENVS, m=FLEET_M, n_sub=N_SUB,
+                  timed=LEARN_TIMED):
+    """Phase 15: PPO on BASELINE config 5 through K2, aggregate; then in
+    per-unit mode (obs 13 + 4M, the factored head M x 5). Each a warm-up
+    and ``timed`` train steps, as the other learner phases."""
+    from pvderx_torch.env import make_fleet_config
+    from pvderx_torch.learn import PPOConfig, make_ppo
+    from pvderx_torch.ops.window import rk4_fleet_window_batch
+
+    ppo = PPOConfig(rollout_len=16, n_epochs=4, n_minibatch=4)
+    kw = dict(dtype=torch.float32, n_sub=n_sub, device=device)
+    out = run_learner("fleet_ppo", card, device, make_ppo,
+                      make_fleet_config("10", m=m, **kw), ppo, n_envs,
+                      rk4_fleet_window_batch, timed=timed)
+    pu = run_learner("fleet_ppo_per_unit", card, device, make_ppo,
+                     make_fleet_config("10", m=m, per_unit=True, **kw), ppo,
+                     n_envs, rk4_fleet_window_batch, timed=timed)
+    return dict(out, per_unit=pu)
+
+
+def run_dqn_main(device, card, n_envs=OFFPOLICY_ENVS, n_sub=N_SUB,
+                 timed=LEARN_TIMED):
+    """Phase 16: DQN at the reference's benchmark widths (rollout 4,
+    4 updates of batch 1024, capacity 262144) through K1."""
+    from pvderx_torch.env import make_env_config
+    from pvderx_torch.learn import DQNConfig, make_dqn
+    from pvderx_torch.ops.window import rk4_window_batch
+
+    cfg = make_env_config("10", dtype=torch.float32, n_sub=n_sub,
+                          device=device)
+    dqn = DQNConfig(rollout_len=4, n_updates=4, batch_size=1024,
+                    capacity=262144)
+    return run_learner("dqn_main", card, device, make_dqn, cfg, dqn, n_envs,
+                       rk4_window_batch, timed=timed)
+
+
+def run_sac_main(device, card, n_envs=OFFPOLICY_ENVS, n_sub=N_SUB,
+                 timed=LEARN_TIMED):
+    """Phase 17: SAC on the continuous env at the reference's benchmark
+    widths through K1."""
+    from pvderx_torch.env import make_env_config
+    from pvderx_torch.learn import SACConfig, make_sac
+    from pvderx_torch.ops.window import rk4_window_batch
+
+    cfg = make_env_config("10", dtype=torch.float32, n_sub=n_sub,
+                          device=device, continuous=True)
+    sac = SACConfig(rollout_len=4, n_updates=4, batch_size=1024,
+                    capacity=262144)
+    return run_learner("sac_main", card, device, make_sac, cfg, sac, n_envs,
+                       rk4_window_batch, metric="critic_loss", timed=timed)
+
+
+def run_learn_gates(device, card):
+    """Phase 18: the four seeded learning gates on the port's learners.
+    Each prints its reading; a miss raises once all four have run. The
+    gates (tasks, budgets, margins) are `pvderx_torch.learn.gates`."""
+    from pvderx_torch.learn.gates import LEARN_GATES, check_learn_gate
+
+    readings = {}
+    for name, gate in LEARN_GATES.items():
+        t = time.perf_counter()
+        trained, random, margin = readings[name] = gate(device)
+        phase("learn_gate", card=card, gate=name, trained=trained,
+              random=random, margin=margin, gain=trained - random,
+              passed=trained > random + margin,
+              seconds=time.perf_counter() - t)
+    for name, reading in readings.items():
+        check_learn_gate(name, *reading)
+    return readings
+
+
 def kernel_name(mangled: str) -> str:
     """`window_kernel<3>` and the like for a window kernel's mangled or
     demangled name; any other name as it is."""
@@ -838,6 +1040,11 @@ def main() -> int:
     check_df_f64(device)
     check_df_gate(device)
     df_out = run_df_main(device, card)
+    ppo_out = run_ppo_main(device, card)
+    fleet_ppo_out = run_fleet_ppo(device, card)
+    dqn_out = run_dqn_main(device, card)
+    sac_out = run_sac_main(device, card)
+    run_learn_gates(device, card)
 
     n_bytes = window_bytes(N_ENVS, 1)
     n_ops = window_ops(N_ENVS, 1, N_SUB)
@@ -863,6 +1070,9 @@ def main() -> int:
         "preset50_ms": main_out["preset50_ms"],
         "preset50_issue_bound_ms": issue(window_ops(N_ENVS, 3, N_SUB)),
         "library_ms": None,
+        "learner_launches": {"ppo_main": ppo_out["launches"],
+                             "dqn_main": dqn_out["launches"],
+                             "sac_main": sac_out["launches"]},
     }, {
         "name": "rk4_fleet_window",
         "route": "cuda",
@@ -877,6 +1087,9 @@ def main() -> int:
         "issue_bound_ms": issue(fleet_window_ops(FLEET_ENVS, FLEET_M, 1,
                                                  N_SUB)),
         "library_ms": None,
+        "learner_launches": {
+            "fleet_ppo": fleet_ppo_out["launches"],
+            "fleet_ppo_per_unit": fleet_ppo_out["per_unit"]["launches"]},
     }, {
         "name": "rk4_window_df",
         "route": "cuda",

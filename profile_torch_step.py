@@ -7,6 +7,7 @@
     python3 profile_torch_step.py --sass     # registers, SASS and issue floor
     python3 profile_torch_step.py --kernels  # ms per launch of K1, K2, K3
     python3 profile_torch_step.py --outputs FILE [--against OTHER]
+    python3 profile_torch_step.py --gate-window SEED [SEED ...]
 
 Runs the main path (preset 10, f32, n_sub=64, 32768 envs, zero-action policy,
 autoreset), with ``--fleet`` the fleet path (preset 10, f32, n_sub=64,
@@ -42,6 +43,15 @@ cases, K2 on its seven fleet cases, at n_sub=64) and saves the outputs to
 FILE (.npz). With ``--against OTHER`` (a file saved the same way, e.g. by
 another checkout) it prints, per kernel and case, the max abs difference
 and whether the two are equal bit for bit.
+
+``--gate-window SEED ...`` trains the per-unit fleet learning gate
+(`pvderx_torch.learn.gates`, M = 4, 32 envs, n_sub=40) on the card from
+each SEED, and at every GATE_EVERY-th env step holds K2's output against
+the plain fleet window run on a CPU copy of the same inputs (the window
+the gate's CPU twin runs), both against that plain window in float64. One
+JSON line per seed: the windows checked, the max abs K2 - plain (f32)
+difference, each one's max abs error against float64, and the gate's
+trained / random / gain.
 """
 from __future__ import annotations
 
@@ -62,6 +72,7 @@ from torch.profiler import ProfilerActivity, profile
 N_ENVS, N_SUB, STEPS, WARM, TIMED = 32768, 64, 20, 10, 200
 FLEET_ENVS, FLEET_M = 4096, 16
 SMS, SCHEDULERS, FP32_LANES = 132, 4, 128   # per H100 SXM; per SM
+GATE_EVERY = 25
 
 
 def sass_loops(sass: str) -> dict:
@@ -267,6 +278,48 @@ def kernel_outputs(path: str, against: str | None) -> int:
     return 0
 
 
+def gate_window(card: str, seeds: list[int]) -> int:
+    """The --gate-window mode (see the module docstring)."""
+    from pvderx_torch.env import fleet as fleet_env
+    from pvderx_torch.learn import gates
+    from pvderx_torch.ops.window import (rk4_fleet_window_batch,
+                                         rk4_fleet_window_batch_ref)
+
+    for seed in seeds:
+        calls, diff, err_k2, err_plain = 0, [], [], []
+
+        def checked(y, t0, p_pack, u_pack, **kw):
+            nonlocal calls
+            out = rk4_fleet_window_batch(y, t0, p_pack, u_pack, **kw)
+            if calls % GATE_EVERY == 0:
+                cpu = [a.cpu() for a in (y, t0, p_pack, u_pack)]
+                plain = rk4_fleet_window_batch_ref(*cpu, **kw).double()
+                f64 = rk4_fleet_window_batch_ref(
+                    *(a.double() for a in cpu), **kw)
+                k2 = out.cpu().double()
+                diff.append(float((k2 - plain).abs().max()))
+                err_k2.append(float((k2 - f64).abs().max()))
+                err_plain.append(float((plain - f64).abs().max()))
+            calls += 1
+            return out
+
+        fleet_env.rk4_fleet_window_batch = checked
+        try:
+            trained, random, margin = gates.gate_fleet_per_unit("cuda", seed)
+        finally:
+            fleet_env.rk4_fleet_window_batch = rk4_fleet_window_batch
+        print(json.dumps({
+            "mode": "gate_window", "card": card, "seed": seed,
+            "windows": calls, "checked": len(diff),
+            "k2_vs_plain_max_abs": max(diff), "k2_vs_f64_max_abs": max(err_k2),
+            "plain_vs_f64_max_abs": max(err_plain),
+            "k2_vs_f64_mean_of_max": sum(err_k2) / len(err_k2),
+            "plain_vs_f64_mean_of_max": sum(err_plain) / len(err_plain),
+            "trained": trained, "random": random, "gain": trained - random}),
+            flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     mode = ap.add_mutually_exclusive_group()
@@ -275,6 +328,7 @@ def main() -> int:
     mode.add_argument("--sass", action="store_true")
     mode.add_argument("--kernels", action="store_true")
     mode.add_argument("--outputs", metavar="FILE")
+    mode.add_argument("--gate-window", metavar="SEED", type=int, nargs="+")
     ap.add_argument("--against", metavar="OTHER")
     args = ap.parse_args()
     if args.against and not args.outputs:
@@ -295,6 +349,8 @@ def main() -> int:
         return time_kernels(card)
     if args.outputs:
         return kernel_outputs(args.outputs, args.against)
+    if args.gate_window:
+        return gate_window(card, args.gate_window)
     path = "fleet" if args.fleet else "df" if args.df else "single"
     kw = dict(dtype=torch.float32, n_sub=N_SUB, device="cuda")
     if path == "fleet":

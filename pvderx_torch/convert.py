@@ -1,4 +1,4 @@
-"""Carry parameters and env state into the port from numpy leaves.
+"""Carry parameters, env state and net weights into the port from numpy.
 
 The dict layouts are those of the JAX package's dataclasses, so a state
 taken there as numpy (``dataclasses.asdict`` of the state with every leaf
@@ -6,9 +6,18 @@ turned into a numpy array) steps here unchanged: a batched `EnvState`, or a
 batched `FleetState` (per-unit leaves [N, M, ...]). The JAX state's per-env PRNG
 ``key`` has no counterpart (the port draws from a `torch.Generator`) and is
 dropped.
+
+A learner net's weights come over from Flax params, a nested dict of numpy
+arrays (``{"params": {"Dense_0": {"kernel", "bias"}, ...}}``, the
+``"params"`` level optional). Flax names a module's Dense layers
+``Dense_0..n`` in call order, and each net of `pvderx_torch.learn.nets`
+lists its `Linear` layers in that order (``net.layers()``); a Flax kernel
+is ``[in, out]`` and a torch weight its transpose. `flax_state_dict` pairs
+the two lists into the net's `state_dict`.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from pvderx_torch.env.core import EnvConfig, EnvState
@@ -62,3 +71,27 @@ def fleet_state_from_numpy(d: dict, fc: FleetConfig,
     return FleetState(
         **_leaves(d, cfg, device),
         s_scale=torch.as_tensor(d["s_scale"], dtype=cfg.dtype, device=device))
+
+
+def dense_layers(params: dict) -> list:
+    """Flax params -> [(kernel [in, out], bias)] in Dense_0..n order."""
+    p = params["params"] if "params" in params else params
+    idx = sorted(int(k.split("_")[1]) for k in p if k.startswith("Dense_"))
+    return [(np.asarray(p[f"Dense_{i}"]["kernel"]),
+             np.asarray(p[f"Dense_{i}"]["bias"])) for i in idx]
+
+
+def flax_state_dict(net: torch.nn.Module, params: dict) -> dict:
+    """Flax params -> the `state_dict` of ``net`` (any net of
+    `pvderx_torch.learn.nets`): float32 tensors, the i-th `Linear` of
+    ``net.layers()`` taking Dense_i."""
+    layers, dense = net.layers(), dense_layers(params)
+    if len(layers) != len(dense):
+        raise ValueError(f"{len(dense)} Dense layers for {len(layers)} "
+                         f"Linear layers of {type(net).__name__}")
+    names = {id(m): n for n, m in net.named_modules()}
+    sd = {}
+    for lin, (k, b) in zip(layers, dense):
+        sd[f"{names[id(lin)]}.weight"] = torch.tensor(k.T, dtype=torch.float32)
+        sd[f"{names[id(lin)]}.bias"] = torch.tensor(b, dtype=torch.float32)
+    return sd

@@ -1,0 +1,103 @@
+"""One learner-facing interface over the single-DER and the fleet env.
+
+The port of `pvderx.learn.env_api`. The learners (PPO, DQN, SAC) need a
+batched reset, a batched step with autoreset, and the widths of the action
+and observation spaces. This module gives them both backends:
+
+- the single-DER env (`pvderx_torch.env.core` + `env.vector`), BASELINE
+  configs 1-4, with the anomaly-detection action (config 3) and the
+  continuous Box extension; its window runs through K1
+  (`ops.window.rk4_window_batch`);
+- the shared-feeder fleet (`pvderx_torch.env.fleet`), BASELINE config 5;
+  its window runs through K2 (`ops.window.rk4_fleet_window_batch`).
+
+The reference's ``unalias`` is not carried over: it breaks the aliases that
+reset leaves between cached buffers, which only XLA's buffer donation
+needs. A torch step never writes into its inputs, so there is nothing to
+break. Nor is its ``mesh``: one process drives one card here.
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+
+from pvderx_torch.env import core, fleet, vector
+from pvderx_torch.ops.window import P_FIELDS, pack_struct
+
+
+class EnvAPI(NamedTuple):
+    """What a learner needs from an env backend (see the module docstring).
+
+    reset_batch(n, generator) -> (state, obs)
+    step(state, actions, generator, p_pack=None) -> (state, obs, reward,
+        done, info), autoreset on: a done env restarts, its new events
+        drawn from ``generator``.
+    ``p_pack`` is `pack_params` of the state (packed by the step when
+    omitted): per-env params never change across steps (a soft reset keeps
+    them), so a runner packs them once.
+    """
+
+    reset_batch: Callable
+    step: Callable
+    n_actions: int      # discrete action count (0 if continuous)
+    act_dim: int        # continuous action width (0 if discrete)
+    obs_dim: int
+    n_units: int        # action channels per env: 1, or M in per-unit fleet
+                        # mode (actions [N, M]; the policy factorizes)
+    device: torch.device  # the config's
+    dtype: torch.dtype
+
+
+def pack_params(state) -> torch.Tensor:
+    """The window's params pack of an env or fleet state: [29, N] or
+    [29, N, M]."""
+    return pack_struct(state.der, P_FIELDS)
+
+
+def make_env_api(env_cfg) -> EnvAPI:
+    """The learner-facing API of an `EnvConfig` or a `FleetConfig`. The
+    device and dtype are the config's (``device="cpu"`` in
+    `make_env_config` for the plain windows)."""
+    if isinstance(env_cfg, fleet.FleetConfig):
+        base = env_cfg.base
+        if base.anomaly_detect or base.continuous:
+            raise ValueError(
+                "the fleet env's action space is the fleet-level Discrete(5) "
+                "only; anomaly_detect/continuous are single-DER env features "
+                "(pvderx_torch/env/fleet.py ignores them: don't set them on "
+                "the FleetConfig base)")
+
+        def reset_batch(n: int, generator: torch.Generator):
+            return fleet.reset(env_cfg, n, generator)
+
+        def step(state, actions, generator, p_pack=None):
+            return fleet._step_batch_impl(env_cfg, state, actions, generator,
+                                          p_pack)
+
+        return EnvAPI(reset_batch=reset_batch, step=step,
+                      n_actions=core.N_ACTIONS, act_dim=0,
+                      obs_dim=fleet.fleet_obs_dim(env_cfg),
+                      n_units=env_cfg.m if env_cfg.per_unit else 1,
+                      device=base.device, dtype=base.dtype)
+
+    if env_cfg.continuous:
+        n_actions, act_dim = 0, core.ACT_DIM_CONT
+    elif env_cfg.anomaly_detect:
+        n_actions, act_dim = core.N_ACTIONS_ANOM, 0
+    else:
+        n_actions, act_dim = core.N_ACTIONS, 0
+
+    def reset_batch(n: int, generator: torch.Generator):
+        return core.reset(env_cfg, n, generator)
+
+    def step(state, actions, generator, p_pack=None):
+        return vector._step_batch_impl(env_cfg, state, actions, generator,
+                                       p_pack)
+
+    return EnvAPI(reset_batch=reset_batch, step=step, n_actions=n_actions,
+                  act_dim=act_dim, obs_dim=core.OBS_DIM, n_units=1,
+                  device=env_cfg.device, dtype=env_cfg.dtype)
+
+
+__all__ = ["EnvAPI", "make_env_api", "pack_params"]

@@ -170,3 +170,30 @@ def test_torch_chip_smoke_kernel_shapes_are_the_main_paths():
     y_hi, y_lo = shapes["k3_preset50"][0].args[:2]
     assert tuple(y_hi.shape) == tuple(y_lo.shape) == (N_ENVS, 23)
     assert bool((y_lo != 0).any())
+
+
+@pytest.mark.parametrize("what, err", [
+    ("fleet kernel at M=1 vs K1", 3.37e-7),      # the reading that slipped by
+    ("df32 kernel vs plain", 1e-15),
+    ("df32 kernel vs plain", float("nan")),
+])
+def test_torch_chip_smoke_bitwise_checks_raise_on_any_difference(what, err):
+    from chip_smoke import require_bitwise
+
+    with pytest.raises(AssertionError, match="not bitwise equal"):
+        require_bitwise(what, err)
+    require_bitwise(what, 0.0)
+    require_bitwise(what, -0.0)
+
+
+def test_torch_chip_smoke_df_gate_reads_preset50_at_the_references_n_sub():
+    import inspect
+
+    from chip_smoke import (DF_GATE_CASES, DF_GATE_REFERENCE, N_SUB,
+                            check_df_gate)
+
+    assert inspect.signature(check_df_gate).parameters["cases"].default \
+        == DF_GATE_CASES
+    assert DF_GATE_CASES == (("10", N_SUB), ("50", N_SUB), ("50", 80))
+    # benchmarks/DUALFLOAT.json df32_max_abs_err_preset50, taken at n_sub=80
+    assert DF_GATE_REFERENCE == {("50", 80): pytest.approx(3.23e-7, rel=1e-3)}
