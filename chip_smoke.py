@@ -83,12 +83,41 @@ Phases, one line each (a failing phase raises, so the script exits non-zero):
               DQN > random + 0.012, SAC (dq 0.15 / dv 0.06) > random +
               0.015, per-unit fleet PPO at M = 4 > uniform + 0.008; a miss
               raises once all four have printed.
+19. implicit — the implicit windows (`ode.implicit`; torch calls, no kernel)
+              in float32 on the card, 128 envs of preset 10 through the
+              90-window sag of tests/test_variants.py:84-107 against the
+              float64 LSODA truth: trapezoid at n_sub 10 and 20, backward
+              Euler at 40, each <= the reference test's bound (5e-6, 1e-6,
+              5e-5) + GATE_TOL; then the env with each scheme at n_sub 16 on
+              the sag scenario (32768 envs, one 60-step horizon through
+              `rollout`): ms per step, env-steps/s, device operations per
+              step (the profiler, one step), peak MiB; K1 never launches.
+20. fleet_implicit — the trapezoidal fleet (M = 16, the stacked 176-unknown
+              system per env, n_sub 16, 512 envs) from one float64 reset,
+              20 steps through a shallow sag in float32 and in float64: the
+              states within FLEET_IMPLICIT_TOL; ms per step, peak MiB; K2
+              never launches; then one float32 step at 4096 envs (ms, peak
+              MiB).
+21. gym     — the Gymnasium adapters (with or without gymnasium installed;
+              the line says which): `PVDERVectorEnv` at 32768 envs for a
+              600-step horizon (SAME_STEP autoreset, final_obs checked on
+              every step, K1 once per step, env-steps/s beside main's);
+              `PVDEREnv` 60 steps; `PVDERFleetEnv` (M = 16) aggregate then
+              per-unit, 60 steps each (K2 once per step).
+22. sim     — `DynamicSimulation("10")` in float32 (n_sub 120) on the
+              schedule of tests/test_sim_diag.py:14-22 (180 windows, K1 once
+              each) against the float64 LSODA trajectory: <= GATE_TOL; the
+              integrator knob (trapezoid@16 vs RK4@72 within 2e-2 on Vdc);
+              float64 with RK4 on the card raises.
+23. config  — every packaged `env_*.json` through `load_env_config` on the
+              card: reset 1024 envs, 10 steps through K1.
 
 Then the kernel table as one JSON line (each kernel with its bound and its
 lane-issue bound: operations / (132 SMs * 128 FP32 lanes * max SM clock),
-and the launches of the learner phases), the card line, and the device
-line.
-Needs one CUDA card; imports torch, numpy, scipy and pvderx_torch only.
+and the launches of the learner phases and of phases 19-23), the card
+line, and the device line.
+Needs one CUDA card; imports torch, numpy, scipy and pvderx_torch only
+(gymnasium if installed).
 """
 from __future__ import annotations
 
@@ -381,7 +410,8 @@ def run_main(device, card, n_envs=N_ENVS, n_sub=N_SUB, warm=WARM_STEPS,
           band=[1.5, 2.7])
     _check_drive("main", out, launches, cuda)
     return dict(launches=launches, kernel_ms=kernel_ms, plain_ms=plain_ms,
-                preset50_ms=k1_50_ms)
+                preset50_ms=k1_50_ms,
+                env_steps_per_s=n_envs * chunk / out["chunk_s"])
 
 
 def fleet_inputs(preset, n, m, seed, device, u_over=None, shade=0.0,
@@ -968,6 +998,475 @@ def run_learn_gates(device, card):
     return readings
 
 
+# ---------------------------------------------------------------------------
+# the implicit integrators, the Gymnasium adapters, the standalone sim and
+# the config store: K1 and K2 on new paths, and the implicit windows, which
+# launch no kernel of the port (their products and LU are torch calls)
+# ---------------------------------------------------------------------------
+# (scheme, n_sub, the reference test's bound against LSODA,
+# tests/test_variants.py:84-107); the f32 window is held to that + GATE_TOL
+IMPLICIT_WINDOW_CASES = (("trapezoid", 10, 5e-6), ("trapezoid", 20, 1e-6),
+                         ("backward_euler", 40, 5e-5))
+IMPLICIT_SUB = 16
+# the sag scenario of tests/test_variants.py:128-137 (`_sag_cfg`)
+SAG_SCEN = dict(p_sag=1.0, p_freq=0.0, sag_depth_lo=0.5, sag_depth_hi=0.5,
+                sag_t_lo=0.3, sag_t_hi=0.3, sag_dur_lo=0.3, sag_dur_hi=0.3)
+FLEET_IMPLICIT_ENVS = 512      # the f32-vs-f64 comparison's width (time)
+FLEET_IMPLICIT_FIT_ENVS = 4096  # one f32 step at config 5's width (memory)
+# float32 vs float64 trapezoidal fleet, 20 steps from one state: the largest
+# state difference, the f32 Newton's roundoff (8.9e-7 on the CPU,
+# `run_fleet_implicit("cpu", "cpu", n_envs=2)`), with a tenfold margin
+FLEET_IMPLICIT_TOL = 1e-5
+KNOB_TOL = 2e-2          # trapezoid@16 vs RK4@72 Vdc, tests/test_variants.py:206
+
+
+def _batch(tree, n, device, dtype=torch.float32):
+    """A params/exog dataclass of Python floats with [n] leaves on device."""
+    import dataclasses
+
+    return dataclasses.replace(tree, **{
+        f.name: torch.full((n,), float(getattr(tree, f.name)), dtype=dtype,
+                           device=device)
+        for f in dataclasses.fields(tree) if f.name != "n_ph"})
+
+
+def _sag_exog(k: int):
+    """Window k of the 90-window sag of tests/test_variants.py:84-107."""
+    import dataclasses
+
+    from pvderx_torch import nominal_exog
+
+    u = nominal_exog()
+    return dataclasses.replace(u, v_g=0.5) if 30 <= k < 60 else u
+
+
+@functools.cache
+def _sag_truth(n_windows: int):
+    """(float64 LSODA trajectory of the sag, seconds it took)."""
+    from pvderx_torch import make_params, oracle
+
+    t = time.perf_counter()
+    truth = oracle.run_trajectory(make_params("10"),
+                                  [_sag_exog(k) for k in range(n_windows)])
+    return truth, time.perf_counter() - t
+
+
+def _device_ops(fn, device):
+    """Device operations (kernels, copies, sets) of one call of ``fn``,
+    counted by torch.profiler; None off the card."""
+    if torch.device(device).type != "cuda":
+        return None
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize(device)
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
+def _peak_mib(device):
+    if torch.device(device).type != "cuda":
+        return None
+    return torch.cuda.max_memory_allocated(device) / 2 ** 20
+
+
+def _reset_peak(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def check_implicit_window(device, cases=IMPLICIT_WINDOW_CASES, n=128,
+                          n_windows=90):
+    """Phase 19a: each implicit window in float32 on n envs of the same case
+    against the float64 LSODA truth of the sag, after the last window as the
+    reference test checks: <= its bound + GATE_TOL. K1 must not launch.
+    Returns {(scheme, n_sub): error}."""
+    from functools import partial
+
+    from pvderx_torch import make_params
+    from pvderx_torch.env import core
+    from pvderx_torch.ode.implicit import WINDOWS
+    from pvderx_torch.ops.window import rk4_window_batch
+
+    truth, truth_s = _sag_truth(n_windows)
+    der = _batch(make_params("10"), n, device)
+    y0 = torch.tensor(np.broadcast_to(truth[0], (n, truth.shape[1])),
+                      dtype=torch.float32, device=device)
+    errs = {}
+    for scheme, n_sub, ref_tol in cases:
+        before = rk4_window_batch.launches
+        t = time.perf_counter()
+        y = y0
+        for k in range(n_windows):
+            f = partial(core._rhs, der=der, exog=_batch(_sag_exog(k), n, device))
+            y = WINDOWS[scheme](f, y, torch.full((n,), k * DT, device=device),
+                                DT, n_sub)
+        err = float((y.double().cpu() - torch.from_numpy(truth[-1])).abs().max())
+        seconds = time.perf_counter() - t
+        moved = rk4_window_batch.launches - before
+        bound = ref_tol + GATE_TOL
+        phase("implicit", check="window", scheme=scheme, n_sub=n_sub, n=n,
+              windows=n_windows, max_abs_err=err, reference_bound=ref_tol,
+              bound=bound, seconds=seconds, lsoda_truth_s=truth_s,
+              k1_launches=moved)
+        if not (np.isfinite(err) and err <= bound):
+            raise AssertionError(f"implicit window {scheme}@{n_sub}: "
+                                 f"{err:.3e} > {bound:.3e}")
+        if moved:
+            raise AssertionError(f"implicit window {scheme}: K1 launched")
+        errs[(scheme, n_sub)] = err
+    return errs
+
+
+def run_implicit_env(device, card, n_envs=N_ENVS, n_sub=IMPLICIT_SUB,
+                     steps=WARM_STEPS):
+    """Phase 19b: the env with each implicit scheme on the sag scenario, one
+    horizon of ``steps`` steps at full width through `rollout`: ms per step,
+    env-steps/s, device operations per step (one step under the profiler),
+    peak MiB; every episode truncates, obs and reward finite, K1 never
+    launches."""
+    from pvderx_torch.env import core, make_batch_fns, make_env_config, rollout
+    from pvderx_torch.ops.window import rk4_window_batch
+
+    policy = lambda obs, g: torch.zeros(obs.shape[0], dtype=torch.int64,
+                                        device=obs.device)
+    out = {}
+    for scheme in ("trapezoid", "backward_euler"):
+        cfg = make_env_config("10", dtype=torch.float32, n_sub=n_sub,
+                              horizon=steps, integrator=scheme,
+                              scen=core.ScenarioConfig(**SAG_SCEN),
+                              device=device)
+        reset_batch, _ = make_batch_fns(cfg)
+        gen = torch.Generator(device=device).manual_seed(0)
+        _reset_peak(device)
+        _zero_counts()
+        state, obs, reset_s, init_res_max = _reset_timed(reset_batch, n_envs,
+                                                         gen)
+        t = time.perf_counter()
+        state, obs, rews, dones = rollout(cfg, state, obs, policy, steps, gen)
+        rew_sum = float(rews.sum())
+        secs = time.perf_counter() - t
+        ops = _device_ops(lambda: rollout(cfg, state, obs, policy, 1, gen),
+                          device)
+        launches = rk4_window_batch.launches
+        finite = (bool(torch.isfinite(obs).all())
+                  and bool(torch.isfinite(rews).all()))
+        out[scheme] = dict(
+            n_envs=n_envs, n_sub=n_sub, steps=steps, reset_s=reset_s,
+            init_res_max=init_res_max, step_ms=1e3 * secs / steps,
+            env_steps_per_s=n_envs * steps / secs,
+            device_ops_per_step=ops, peak_mem_mib=_peak_mib(device),
+            dones=int(dones.sum()), rew_sum=rew_sum, finite=finite,
+            k1_launches=launches)
+        phase("implicit", check="env", card=card, scheme=scheme,
+              **out[scheme])
+        if not finite:
+            raise AssertionError(f"implicit env {scheme}: non-finite output")
+        if not bool(dones[-1].all()):
+            raise AssertionError(f"implicit env {scheme}: the horizon did "
+                                 "not truncate every episode")
+        if launches:
+            raise AssertionError(f"implicit env {scheme}: K1 launched "
+                                 f"{launches} times")
+    return out
+
+
+def run_fleet_implicit(device, card, n_envs=FLEET_IMPLICIT_ENVS, m=FLEET_M,
+                       n_sub=IMPLICIT_SUB, steps=20,
+                       fit_envs=FLEET_IMPLICIT_FIT_ENVS):
+    """Phase 20: the trapezoidal fleet (the stacked [M·n_s] system of each
+    env) from one float64 reset state, stepped in float32 and in float64 on
+    the same actions through a shallow sag: the states agree within
+    FLEET_IMPLICIT_TOL; ms per step, peak MiB; K2 never launches. Then one
+    float32 step at ``fit_envs`` envs (config 5's width): its ms and peak
+    MiB, finite."""
+    from pvderx_torch._struct import tree_map
+    from pvderx_torch.env import ScenarioConfig, fleet, make_fleet_config
+    from pvderx_torch.ops.window import rk4_fleet_window_batch
+
+    scen = ScenarioConfig(p_sag=1.0, p_freq=0.0, sag_depth_lo=0.8,
+                          sag_depth_hi=0.9, sag_t_lo=0.1, sag_t_hi=0.2,
+                          sag_dur_lo=0.1, sag_dur_hi=0.2, fleet_s_jitter=0.25)
+    kw = dict(m=m, n_sub=n_sub, integrator="trapezoid", scen=scen,
+              device=device)
+    fc64 = make_fleet_config("10", dtype=torch.float64, **kw)
+    fc32 = make_fleet_config("10", dtype=torch.float32, **kw)
+    gen = torch.Generator(device=device).manual_seed(0)
+    st64, _ = fleet.reset(fc64, n_envs, gen)
+    st32 = tree_map(lambda x: x.float() if x.is_floating_point() else x, st64)
+    acts = torch.randint(0, 5, (steps, n_envs), generator=gen, device=device)
+    runs = {}
+    for name, fc, st in (("float32", fc32, st32), ("float64", fc64, st64)):
+        _reset_peak(device)
+        _zero_counts()
+        t = time.perf_counter()
+        for k in range(steps):
+            st, obs, rew, _, _ = fleet.step(fc, st, acts[k])
+        finite = bool(torch.isfinite(st.y).all()) and bool(
+            torch.isfinite(rew).all())
+        secs = time.perf_counter() - t
+        runs[name] = dict(st=st, step_ms=1e3 * secs / steps,
+                          peak_mem_mib=_peak_mib(device), finite=finite,
+                          k2_launches=rk4_fleet_window_batch.launches)
+    diff = float((runs["float32"]["st"].y.double()
+                  - runs["float64"]["st"].y).abs().max())
+    del runs["float32"]["st"], runs["float64"]["st"], st, st32, st64
+    _reset_peak(device)
+    st, _ = fleet.reset(fc32, fit_envs, gen)
+    t = time.perf_counter()
+    st, _, rew, _, _ = fleet.step(fc32, st, torch.zeros(fit_envs,
+                                                        dtype=torch.int64,
+                                                        device=device))
+    fit_finite = bool(torch.isfinite(st.y).all())
+    fit = dict(fit_envs=fit_envs, fit_step_ms=1e3 * (time.perf_counter() - t),
+               fit_peak_mem_mib=_peak_mib(device), fit_finite=fit_finite)
+    out = dict(n_envs=n_envs, m=m, n_sub=n_sub, steps=steps,
+               unknowns_per_env=m * fc32.base.der.n_states,
+               max_abs_diff_f32_f64=diff, tol=FLEET_IMPLICIT_TOL,
+               **{f"{name}_{k}": v for name, r in runs.items()
+                  for k, v in r.items()}, **fit)
+    phase("fleet_implicit", card=card, **out)
+    if not fit_finite:
+        raise AssertionError(f"fleet_implicit at {fit_envs} envs: non-finite")
+    for name, r in runs.items():
+        if not r["finite"]:
+            raise AssertionError(f"fleet_implicit {name}: non-finite state")
+        if r["k2_launches"]:
+            raise AssertionError(f"fleet_implicit {name}: K2 launched")
+    if not diff <= FLEET_IMPLICIT_TOL:
+        raise AssertionError(f"fleet_implicit f32 vs f64 {diff:.3e} > "
+                             f"{FLEET_IMPLICIT_TOL}")
+    return out
+
+
+def check_final_obs(info: dict, done: np.ndarray) -> None:
+    """The SAME_STEP contract of one vector-env step: where an episode
+    ended, ``info`` carries the finite pre-reset observation, marked by
+    ``_final_obs`` on exactly the done rows; with no done row, neither."""
+    if not done.any():
+        if "final_obs" in info or "_final_obs" in info:
+            raise AssertionError("final_obs with no episode done")
+        return
+    if "final_obs" not in info or "_final_obs" not in info:
+        raise AssertionError(f"{int(done.sum())} done rows without final_obs")
+    if not np.array_equal(info["_final_obs"], done):
+        raise AssertionError("_final_obs does not mark the done rows")
+    if not np.isfinite(info["final_obs"][done]).all():
+        raise AssertionError("final_obs not finite on a done row")
+
+
+def _drive_adapter(env, actions, kernel, cuda, what):
+    """Reset a single-env adapter and step it through ``actions``: the
+    kernel must launch once per step. Returns (ms per step, launches)."""
+    env.reset(seed=0)
+    _zero_counts()
+    t = time.perf_counter()
+    for a in actions:
+        obs, rew, _, _, _ = env.step(a)
+        if not (np.isfinite(obs).all() and np.isfinite(rew)):
+            raise AssertionError(f"{what}: non-finite step")
+    ms = 1e3 * (time.perf_counter() - t) / len(actions)
+    if cuda and kernel.launches != len(actions):
+        raise AssertionError(f"{what}: kernel launches {kernel.launches} != "
+                             f"steps {len(actions)}")
+    return ms, kernel.launches
+
+
+def run_gym(device, card, main_rate=None, n_envs=N_ENVS, n_sub=N_SUB,
+            vec_steps=CHUNK_STEPS, steps=WARM_STEPS, m=FLEET_M):
+    """Phase 21: the Gymnasium adapters, with or without gymnasium
+    installed: `PVDERVectorEnv` at full width for one horizon (truncation
+    and SAME_STEP autoreset fire; final_obs checked on every step; K1 once
+    per step; env-steps/s beside the main path's), `PVDEREnv` and
+    `PVDERFleetEnv` (aggregate, then per-unit) for ``steps`` steps, K1 / K2
+    once per step."""
+    from pvderx_torch.env import gym_adapter as ga
+    from pvderx_torch.ops.window import rk4_fleet_window_batch, rk4_window_batch
+
+    cuda = torch.device(device).type == "cuda"
+    venv = ga.PVDERVectorEnv(n_envs, "10", n_sub=n_sub, horizon=vec_steps,
+                             device=device)
+    t = time.perf_counter()
+    obs, _ = venv.reset(seed=0)
+    reset_s = time.perf_counter() - t
+    acts = np.zeros(n_envs, np.int64)
+    _zero_counts()
+    dones = 0
+    finite = True
+    t = time.perf_counter()
+    for _ in range(vec_steps):
+        obs, rew, term, trunc, info = venv.step(acts)
+        done = term | trunc
+        check_final_obs(info, done)
+        dones += int(done.sum())
+        finite &= bool(np.isfinite(obs).all() and np.isfinite(rew).all())
+    secs = time.perf_counter() - t
+    launches = rk4_window_batch.launches
+    rate = n_envs * vec_steps / secs
+    out = dict(gymnasium=ga._HAS_GYM, vector=dict(
+        n_envs=n_envs, n_sub=n_sub, steps=vec_steps, reset_s=reset_s,
+        step_ms=1e3 * secs / vec_steps, env_steps_per_s=rate,
+        main_env_steps_per_s=main_rate, launches=launches, dones=dones))
+    phase("gym", card=card, adapter="PVDERVectorEnv", gymnasium=ga._HAS_GYM,
+          **out["vector"])
+    if not finite:
+        raise AssertionError("gym vector: non-finite obs or reward")
+    if dones == 0:
+        raise AssertionError("gym vector: no episode ended")
+    if cuda and launches != vec_steps:
+        raise AssertionError(f"gym vector: K1 launches {launches} != steps "
+                             f"{vec_steps}")
+
+    single_acts = [k % 5 for k in range(steps)]
+    ms, n = _drive_adapter(ga.PVDEREnv("10", n_sub=n_sub, device=device),
+                           single_acts, rk4_window_batch, cuda, "gym single")
+    out["single"] = dict(steps=steps, step_ms=ms, launches=n)
+    phase("gym", card=card, adapter="PVDEREnv", **out["single"])
+    rng = np.random.default_rng(0)
+    for per_unit in (False, True):
+        env = ga.PVDERFleetEnv("10", m=m, n_sub=n_sub, per_unit=per_unit,
+                               device=device)
+        fleet_acts = [rng.integers(0, 5, m) if per_unit else k % 5
+                      for k in range(steps)]
+        name = "fleet_per_unit" if per_unit else "fleet"
+        ms, n = _drive_adapter(env, fleet_acts, rk4_fleet_window_batch, cuda,
+                               f"gym {name}")
+        out[name] = dict(m=m, steps=steps, step_ms=ms, launches=n)
+        phase("gym", card=card, adapter="PVDERFleetEnv", per_unit=per_unit,
+              **out[name])
+    return out
+
+
+def _sim_exogs(n_steps: int):
+    """The ZOH exogs of the sim schedule of tests/test_sim_diag.py:14-22
+    (cloud to 500 W/m² at 1 s, 0.7 pu sag from 2.0 to 2.4 s)."""
+    import dataclasses
+
+    from pvderx_torch import nominal_exog
+
+    u, exogs = nominal_exog(), []
+    for k in range(n_steps):
+        t, uu = k * DT, u
+        if t >= 1.0:
+            uu = dataclasses.replace(uu, s_irr=500.0)
+        if 2.0 <= t < 2.4:
+            uu = dataclasses.replace(uu, v_g=0.7)
+        exogs.append(uu)
+    return exogs
+
+
+def run_sim(device, card, t_stop=3.0, knob_stop=1.0):
+    """Phase 22: `DynamicSimulation("10")` in float32 on the sim schedule
+    of tests/test_sim_diag.py (tStop 3 s: 180 windows, K1 once each)
+    against the float64 LSODA trajectory on the same exogs: <= GATE_TOL;
+    then the integrator knob (tests/test_variants.py:186-206): trapezoid at
+    n_sub 16 (no K1 launch) and RK4 at 72 over 1 s of a 0.6 pu sag, finite
+    and within KNOB_TOL on Vdc; on the card, float64 with RK4 raises."""
+    from pvderx_torch import make_params, oracle
+    from pvderx_torch.ops.window import rk4_window_batch
+    from pvderx_torch.scenario import EventBuilder
+    from pvderx_torch.sim import DynamicSimulation
+
+    cuda = torch.device(device).type == "cuda"
+    ev = EventBuilder()
+    ev.add_solar_event(1.0, 500.0)
+    ev.add_grid_event(2.0, v=0.7)
+    ev.add_grid_event(2.4)
+    sim = DynamicSimulation("10", events=ev, tStop=t_stop, device=device)
+    _zero_counts()
+    t = time.perf_counter()
+    series = sim.run_simulation()
+    sim_s = time.perf_counter() - t
+    launches = rk4_window_batch.launches
+    t = time.perf_counter()
+    truth = oracle.run_trajectory(make_params("10"), _sim_exogs(sim.n_steps))
+    truth_s = time.perf_counter() - t
+    err = float(np.abs(series["y"] - truth[1:]).max())
+
+    knob = EventBuilder()
+    knob.add_grid_event(0.3, 0.6)
+    knob.add_grid_event(0.6, 1.0)
+    vdc, knob_launches = {}, {}
+    for integ, n_sub in (("trapezoid", 16), ("rk4", 72)):
+        _zero_counts()
+        s = DynamicSimulation("10", events=knob, tStop=knob_stop, n_sub=n_sub,
+                              integrator=integ, device=device)
+        vdc[integ] = s.run_simulation()["vdc"]
+        knob_launches[integ] = rk4_window_batch.launches
+    knob_diff = float(np.abs(vdc["trapezoid"] - vdc["rk4"]).max())
+    f64_raises = None
+    if cuda:
+        try:
+            DynamicSimulation("10", tStop=0.05, dtype=torch.float64,
+                              device=device).run_simulation()
+            f64_raises = False
+        except ValueError:
+            f64_raises = True
+    out = dict(windows=sim.n_steps, n_sub=sim.cfg.n_sub, sim_s=sim_s,
+               launches=launches, max_abs_err=err, bound=GATE_TOL,
+               lsoda_truth_s=truth_s, knob_max_abs_vdc_diff=knob_diff,
+               knob_tol=KNOB_TOL, knob_launches=knob_launches,
+               float64_rk4_raises=f64_raises)
+    phase("sim", card=card, **out)
+    if cuda and launches != sim.n_steps:
+        raise AssertionError(f"sim: K1 launches {launches} != windows "
+                             f"{sim.n_steps}")
+    if not err <= GATE_TOL:
+        raise AssertionError(f"sim vs LSODA {err:.3e} > {GATE_TOL}")
+    if not (np.isfinite(vdc["trapezoid"]).all() and knob_diff <= KNOB_TOL):
+        raise AssertionError(f"sim knob: trapezoid vs rk4 {knob_diff:.3e}")
+    if knob_launches["trapezoid"] or (
+            cuda and knob_launches["rk4"] != len(vdc["rk4"])):
+        raise AssertionError(f"sim knob launches {knob_launches}")
+    if cuda and not f64_raises:
+        raise AssertionError("sim: float64 with rk4 on the card did not raise")
+    return out
+
+
+def run_config(device, card, n_envs=1024, steps=10):
+    """Phase 23: every packaged env config (`load_env_config` of
+    pvderx_torch/configs/env_*.json) on the device: reset n_envs, ``steps``
+    steps through K1 (one launch each), obs and reward finite."""
+    import os
+
+    from pvderx_torch.config import CONFIG_DIR, load_env_config
+    from pvderx_torch.env import make_batch_fns, rollout
+    from pvderx_torch.ops.window import rk4_window_batch
+
+    cuda = torch.device(device).type == "cuda"
+    names = sorted(f[:-5] for f in os.listdir(CONFIG_DIR)
+                   if f.startswith("env_") and f.endswith(".json"))
+    policy = lambda obs, g: torch.zeros(obs.shape[0], dtype=torch.int64,
+                                        device=obs.device)
+    out = {}
+    for name in names:
+        cfg = load_env_config(name, device=device)
+        reset_batch, _ = make_batch_fns(cfg)
+        gen = torch.Generator(device=device).manual_seed(0)
+        _zero_counts()
+        state, obs, reset_s, init_res_max = _reset_timed(reset_batch, n_envs,
+                                                         gen)
+        t = time.perf_counter()
+        state, obs, rews, _ = rollout(cfg, state, obs, policy, steps, gen)
+        float(rews.sum())
+        secs = time.perf_counter() - t
+        finite = (bool(torch.isfinite(obs).all())
+                  and bool(torch.isfinite(rews).all()))
+        out[name] = dict(preset_n_ph=cfg.der.n_ph, n_sub=cfg.n_sub,
+                         n_envs=n_envs, reset_s=reset_s,
+                         init_res_max=init_res_max, steps=steps,
+                         step_ms=1e3 * secs / steps,
+                         launches=rk4_window_batch.launches, finite=finite)
+        phase("config", card=card, config=name, **out[name])
+        if not finite:
+            raise AssertionError(f"config {name}: non-finite obs or reward")
+        if cuda and out[name]["launches"] != steps:
+            raise AssertionError(f"config {name}: K1 launches "
+                                 f"{out[name]['launches']} != {steps}")
+    return out
+
+
 def kernel_name(mangled: str) -> str:
     """`window_kernel<3>` and the like for a window kernel's mangled or
     demangled name; any other name as it is."""
@@ -1045,6 +1544,12 @@ def main() -> int:
     dqn_out = run_dqn_main(device, card)
     sac_out = run_sac_main(device, card)
     run_learn_gates(device, card)
+    check_implicit_window(device)
+    implicit_out = run_implicit_env(device, card)
+    fleet_implicit_out = run_fleet_implicit(device, card)
+    gym_out = run_gym(device, card, main_rate=main_out["env_steps_per_s"])
+    sim_out = run_sim(device, card)
+    config_out = run_config(device, card)
 
     n_bytes = window_bytes(N_ENVS, 1)
     n_ops = window_ops(N_ENVS, 1, N_SUB)
@@ -1073,6 +1578,15 @@ def main() -> int:
         "learner_launches": {"ppo_main": ppo_out["launches"],
                              "dqn_main": dqn_out["launches"],
                              "sac_main": sac_out["launches"]},
+        "slice_launches": {
+            "gym_vector": gym_out["vector"]["launches"],
+            "gym_single": gym_out["single"]["launches"],
+            "sim": sim_out["launches"],
+            "sim_knob_rk4": sim_out["knob_launches"]["rk4"],
+            "config": {k: v["launches"] for k, v in config_out.items()},
+            "implicit_env": {k: v["k1_launches"]
+                             for k, v in implicit_out.items()},
+            "sim_knob_trapezoid": sim_out["knob_launches"]["trapezoid"]},
     }, {
         "name": "rk4_fleet_window",
         "route": "cuda",
@@ -1090,6 +1604,10 @@ def main() -> int:
         "learner_launches": {
             "fleet_ppo": fleet_ppo_out["launches"],
             "fleet_ppo_per_unit": fleet_ppo_out["per_unit"]["launches"]},
+        "slice_launches": {
+            "gym_fleet": gym_out["fleet"]["launches"],
+            "gym_fleet_per_unit": gym_out["fleet_per_unit"]["launches"],
+            "fleet_implicit": fleet_implicit_out["float32_k2_launches"]},
     }, {
         "name": "rk4_window_df",
         "route": "cuda",

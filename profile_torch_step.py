@@ -8,6 +8,7 @@
     python3 profile_torch_step.py --kernels  # ms per launch of K1, K2, K3
     python3 profile_torch_step.py --outputs FILE [--against OTHER]
     python3 profile_torch_step.py --gate-window SEED [SEED ...]
+    python3 profile_torch_step.py --jacobian cuda|cpu
 
 Runs the main path (preset 10, f32, n_sub=64, 32768 envs, zero-action policy,
 autoreset), with ``--fleet`` the fleet path (preset 10, f32, n_sub=64,
@@ -52,6 +53,16 @@ the gate's CPU twin runs), both against that plain window in float64. One
 JSON line per seed: the windows checked, the max abs K2 - plain (f32)
 difference, each one's max abs error against float64, and the gate's
 trained / random / gain.
+
+``--jacobian DEVICE`` times the two ways to take the Jacobian of the
+single-DER RHS (preset 10, float32, a reset state on DEVICE, the sag's
+0.5 pu grid): torch's forward mode, `vmap(jacfwd)` of the one-env
+residual, and the complex step of `pvderx_torch.ode.implicit`
+(`rhs_and_jacobian`, one evaluation of the RHS on complex copies), at
+N = 1, 128 and 32768 envs, each the mean of 10 calls after one, synced;
+and the plain batched RHS beside them. One JSON line per N: the ms of
+each and the largest difference of the two Jacobians relative to the
+largest entry. On "cpu" it measures the host, not a card.
 """
 from __future__ import annotations
 
@@ -320,6 +331,56 @@ def gate_window(card: str, seeds: list[int]) -> int:
     return 0
 
 
+def jacobian_times(device: str) -> int:
+    """``--jacobian``: forward mode vs the complex step (module doc)."""
+    import dataclasses
+    from functools import partial
+
+    from pvderx_torch.env import core, make_env_config
+    from pvderx_torch.ode.implicit import rhs_and_jacobian
+    from pvderx_torch.ops.window import P_FIELDS, U_FIELDS, pack_struct
+    from pvderx_torch.physics.xp import TorchXP
+
+    where = (torch.cuda.get_device_name(0) if device == "cuda" else
+             f"cpu (host), torch {torch.__version__}")
+    cfg = make_env_config("10", dtype=torch.float32, n_sub=N_SUB,
+                          device=device)
+    one = partial(core._rhs_one, n_ph=1, xp=TorchXP(torch.float32, device))
+    jac_fwd = torch.func.vmap(torch.func.jacfwd(one))
+    for n in (1, 128, N_ENVS):
+        st, _ = core.reset(cfg, n, torch.Generator(device=device).manual_seed(0))
+        t0 = torch.zeros(n, device=device)
+        _, exog, _, _ = core._pre_window(
+            cfg, st, torch.zeros(n, dtype=torch.int64, device=device))
+        exog = dataclasses.replace(exog, v_g=exog.v_g * 0.5)
+        pk = pack_struct(st.der, P_FIELDS).T
+        uk = pack_struct(exog, U_FIELDS).T
+        calls = {
+            "jacfwd": lambda: jac_fwd(st.y, pk, uk),
+            "complex_step": lambda: rhs_and_jacobian(
+                lambda yy: core._rhs(yy, t0, st.der, exog), st.y)[1],
+            "plain_rhs": lambda: core._rhs(st.y, t0, st.der, exog),
+        }
+        ms, out = {}, {}
+        for name, fn in calls.items():
+            out[name] = fn()
+            if device == "cuda":
+                torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(10):
+                fn()
+            if device == "cuda":
+                torch.cuda.synchronize()
+            ms[name] = 1e3 * (time.perf_counter() - t) / 10
+        a, b = out["jacfwd"].double(), out["complex_step"].double()
+        print(json.dumps({"jacobian": where, "n_envs": n, "ms": ms,
+                          "max_rel_diff": float((a - b).abs().max()
+                                                / b.abs().max()),
+                          "jacfwd_dtype": str(out["jacfwd"].dtype)}),
+              flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     mode = ap.add_mutually_exclusive_group()
@@ -329,10 +390,13 @@ def main() -> int:
     mode.add_argument("--kernels", action="store_true")
     mode.add_argument("--outputs", metavar="FILE")
     mode.add_argument("--gate-window", metavar="SEED", type=int, nargs="+")
+    mode.add_argument("--jacobian", choices=("cuda", "cpu"))
     ap.add_argument("--against", metavar="OTHER")
     args = ap.parse_args()
     if args.against and not args.outputs:
         ap.error("--against needs --outputs")
+    if args.jacobian == "cpu":
+        return jacobian_times("cpu")
     if not torch.cuda.is_available():
         print("profile_torch_step: no CUDA device is available", file=sys.stderr)
         return 1
@@ -351,6 +415,8 @@ def main() -> int:
         return kernel_outputs(args.outputs, args.against)
     if args.gate_window:
         return gate_window(card, args.gate_window)
+    if args.jacobian:
+        return jacobian_times("cuda")
     path = "fleet" if args.fleet else "df" if args.df else "single"
     kw = dict(dtype=torch.float32, n_sub=N_SUB, device="cuda")
     if path == "fleet":

@@ -1,14 +1,68 @@
 """pvderx_torch — the PV-DER RL environment engine in PyTorch for NVIDIA Hopper.
 
-A second package beside `pvderx` (JAX): the same physics, scenarios and
-batched environment, with the RK4 control window as a hand-written CUDA
-kernel (`pvderx_torch/ops/csrc/window.cu`). Entry points take ``device=`` and
-default to ``"cuda"``; pass ``device="cpu"`` to run the plain torch versions.
+A second package beside `pvderx` (JAX): the same physics, scenarios, batched
+environments, learners, Gymnasium adapters and standalone simulation, with
+the RK4 control windows as hand-written CUDA kernels
+(`pvderx_torch/ops/csrc/`). Entry points take ``device=`` and default to
+``"cuda"``; pass ``device="cpu"`` to run the plain torch versions.
 
     from pvderx_torch.env import make_env_config, make_batch_fns, rollout
     cfg = make_env_config("10", n_sub=64, device="cuda")
     reset_batch, step_batch = make_batch_fns(cfg)
+
+Importing the package registers the Gymnasium ids `pvderx_torch/PVDER-v0`
+(with a vector entry point) and `pvderx_torch/PVDERFleet-v0` when gymnasium
+is installed; the entry points are strings, resolved at `gym.make` time, so
+the env stack is not imported here.
 """
+import importlib.util as _ilu
+
+from pvderx_torch import physics
+from pvderx_torch.models import DER_MODEL_TYPES, make_der
 from pvderx_torch.params import DERParams, Exog, make_params, nominal_exog
 
-__all__ = ["DERParams", "Exog", "make_params", "nominal_exog"]
+if _ilu.find_spec("gymnasium") is not None:
+    from gymnasium.envs.registration import register as _gym_register
+    from gymnasium.envs.registration import registry as _gym_registry
+
+    if "pvderx_torch/PVDER-v0" not in _gym_registry:
+        _gym_register(
+            id="pvderx_torch/PVDER-v0",
+            entry_point="pvderx_torch.env.gym_adapter:PVDEREnv",
+            vector_entry_point="pvderx_torch.env.gym_adapter:PVDERVectorEnv")
+    if "pvderx_torch/PVDERFleet-v0" not in _gym_registry:
+        _gym_register(id="pvderx_torch/PVDERFleet-v0",
+                      entry_point="pvderx_torch.env.gym_adapter:PVDERFleetEnv")
+
+# top-level conveniences, resolved on first access so `import pvderx_torch`
+# stays light for physics-only users
+_LAZY = {
+    "check_parameters": ("pvderx_torch.checks", "check_parameters"),
+    "check_scenario": ("pvderx_torch.checks", "check_scenario"),
+    "creation_message": ("pvderx_torch.checks", "creation_message"),
+    "make_env_config": ("pvderx_torch.env", "make_env_config"),
+    "EventBuilder": ("pvderx_torch.scenario", "EventBuilder"),
+    "DynamicSimulation": ("pvderx_torch.sim", "DynamicSimulation"),
+    "SimulationResults": ("pvderx_torch.diag.plots", "SimulationResults"),
+}
+
+# submodules resolvable as attributes (`pvderx_torch.env.make_env_config`)
+_LAZY_MODULES = ("env", "sim", "scenario", "ode", "oracle", "learn", "diag",
+                 "utils", "config", "ops", "convert")
+
+
+def __getattr__(name):
+    import importlib
+
+    if name in _LAZY:
+        mod, attr = _LAZY[name]
+        return getattr(importlib.import_module(mod), attr)
+    if name in _LAZY_MODULES:
+        return importlib.import_module(f"pvderx_torch.{name}")
+    raise AttributeError(f"module 'pvderx_torch' has no attribute {name!r}")
+
+
+__all__ = [
+    "DERParams", "Exog", "make_params", "nominal_exog", "DER_MODEL_TYPES",
+    "make_der", "physics", *_LAZY,
+]

@@ -146,4 +146,38 @@ def check_scenario(scen, raise_on_error: bool = True) -> list[str]:
     return errs
 
 
-__all__ = ["check_parameters", "check_scenario"]
+def creation_message(der: DERParams) -> str:
+    """Human-readable one-stop summary of a DER model (the reference's
+    `creation_message`, `pvderx/checks.py:165-199`). Batched params get a
+    short structural summary instead of field values."""
+    f = lambda n: _concrete(getattr(der, n))
+    needed = ("s_rated", "v_base", "vdc_base", "rf", "lf", "rg", "xg",
+              "np_par", "isc_ref", "gamma", "m_max", "i_max", "tau_dc",
+              "kp_gcc", "ki_gcc", "kp_dc", "ki_dc", "kp_q", "ki_q",
+              "kp_pll", "ki_pll", "const_vdc")
+    if any(f(n) is None for n in needed):
+        return (f"PV-DER: {der.n_ph}-phase, {der.n_states} states "
+                "(batched/traced params — per-unit values not concrete)")
+    kva = (f("s_rated") or 0.0) / 1e3
+    v_rms = (f("v_base") or 0.0) / math.sqrt(2.0)
+    variant = "constant-Vdc " if (f("const_vdc") or 0.0) == 1.0 else ""
+    lines = [
+        f"PV-DER: {variant}{der.n_ph}-phase, {kva:g} kVA, "
+        f"{v_rms:.0f} V rms/phase, Vdc_base {f('vdc_base'):g} V",
+        f"  states: {der.n_states} "
+        f"({der.n_ph}x(i,x,u) complex pairs + Vdc,xDC,xQ,xPLL,wte)",
+        f"  filter: Rf={f('rf'):g} pu, Lf={f('lf'):g} pu; "
+        f"grid: Rg={f('rg'):g} pu, Xg={f('xg'):g} pu",
+        f"  PV array: Np={f('np_par'):g}, Isc_ref={f('isc_ref'):g} A, "
+        f"diode exponent at Vdc_base = "
+        f"{f('gamma') * f('vdc_base') / T_REF:.1f}",
+        f"  limits: m_max={f('m_max'):g}, i_max={f('i_max'):g} pu; "
+        f"DC link tau={f('tau_dc') * 1e3:.1f} ms",
+        f"  controller gains: GCC {f('kp_gcc'):g}/{f('ki_gcc'):g}, "
+        f"DC {f('kp_dc'):g}/{f('ki_dc'):g}, Q {f('kp_q'):g}/{f('ki_q'):g}, "
+        f"PLL {f('kp_pll'):g}/{f('ki_pll'):g}",
+    ]
+    return "\n".join(lines)
+
+
+__all__ = ["check_parameters", "check_scenario", "creation_message"]

@@ -21,9 +21,10 @@ from typing import Any
 
 import torch
 
-from pvderx_torch._struct import replace, struct
+from pvderx_torch._struct import replace, struct, tree_map
 from pvderx_torch.checks import check_parameters, check_scenario
 from pvderx_torch.ode import newton_solve
+from pvderx_torch.ode.implicit import WINDOWS as IMPLICIT_WINDOWS
 from pvderx_torch.ops.window import (
     P_FIELDS, U_FIELDS, pack_struct, rk4_window_batch, unpack_struct)
 from pvderx_torch.params import DERParams, Exog, make_params
@@ -41,9 +42,10 @@ N_ACTIONS_ANOM = 6  # + action 5 = "flag anomaly"
 ACT_DIM_CONT = 2    # continuous extension (SPEC.md §9): (dq, dv)
 N_EVENT_DRAWS = 14  # uniforms per env per event schedule
 
-# The window-integration schemes of the reference. This package implements
-# "rk4" (the CUDA window kernel); the implicit schemes are listed in
-# ROADMAP.md as still to port.
+# The window-integration schemes: "rk4" (explicit; the CUDA window kernel on
+# the card) | "trapezoid" (A-stable, 2nd order) | "backward_euler" (L-stable,
+# 1st order). The implicit schemes run `ode.implicit` (torch calls, no
+# kernel) and allow n_sub below RK4's stability bound of 40.
 INTEGRATORS = ("rk4", "trapezoid", "backward_euler")
 
 
@@ -183,11 +185,6 @@ def make_env_config(
     scen = scen or ScenarioConfig()
     check_parameters(der)
     check_scenario(scen)
-    if integrator != "rk4":
-        raise NotImplementedError(
-            f"integrator={integrator!r} is not ported yet: this package "
-            "implements 'rk4' only (ROADMAP.md lists ode/implicit.py as "
-            "still to port)")
     cfg = EnvConfig(
         der=der.to(dtype, device),
         rt=default_rt_params(rt_enabled, dtype, device),
@@ -291,6 +288,16 @@ def _algebra(y, t, der, exog) -> rhs_core.Algebra:
     return rhs_core.algebra(y.T, t, der, exog, like(y))
 
 
+def _rhs(y, t, der, exog):
+    """dy/dt of every env: y [N, n_s], t [N], der/exog [N] leaves. A complex
+    y [N, K, n_s] (K copies of each env, as `ode.implicit` passes for the
+    Jacobian) broadcasts each env's inputs over its copies."""
+    bc = lambda x: x.reshape(x.shape + (1,) * (y.dim() - 2))
+    return rhs_core.rhs(y.movedim(-1, 0), bc(t), tree_map(bc, der),
+                        tree_map(bc, exog),
+                        TorchXP(der.rf.dtype, y.device)).movedim(0, -1)
+
+
 def _rhs_one(y, pk, uk, *, n_ph: int, xp: TorchXP):
     """Steady-state residual of ONE env: y [n_s], packed params/exog."""
     p = unpack_struct(DERParams, pk, P_FIELDS, n_ph=n_ph)
@@ -302,6 +309,16 @@ def _guess_one(pk, uk, *, n_ph: int, xp: TorchXP):
     p = unpack_struct(DERParams, pk, P_FIELDS, n_ph=n_ph)
     u = unpack_struct(Exog, uk, U_FIELDS)
     return rhs_core.steady_state_guess(p, u, xp)
+
+
+def steady_state(der, exog0, iters: int):
+    """The Newton steady state at t = 0 of every env ([N] leaves), from the
+    analytic guess: (y0 [N, n_s], max-abs residual [N])."""
+    pk = pack_struct(der, P_FIELDS).T
+    uk = pack_struct(exog0, U_FIELDS).T
+    kw = dict(n_ph=der.n_ph, xp=TorchXP(der.rf.dtype, der.rf.device))
+    y_guess = torch.func.vmap(partial(_guess_one, **kw))(pk, uk)
+    return newton_solve(partial(_rhs_one, **kw), y_guess, pk, uk, iters=iters)
 
 
 # ---------------------------------------------------------------------------
@@ -348,11 +365,7 @@ def reset(cfg: EnvConfig, n: int, generator: torch.Generator):
     zeros = torch.zeros(n, dtype=dtype, device=dev)
     ones = torch.ones(n, dtype=dtype, device=dev)
     exog0 = make_exog(sched, zeros, ones, zeros, ones, zeros)
-    pk = pack_struct(der, P_FIELDS).T
-    uk = pack_struct(exog0, U_FIELDS).T
-    kw = dict(n_ph=der.n_ph, xp=TorchXP(dtype, dev))
-    y_guess = torch.func.vmap(partial(_guess_one, **kw))(pk, uk)
-    y0, res = newton_solve(partial(_rhs_one, **kw), y_guess, pk, uk, iters=20)
+    y0, res = steady_state(der, exog0, iters=20)
 
     g = _algebra(y0, zeros, der, exog0)
     st = EnvState(
@@ -483,11 +496,18 @@ def _post_window(cfg: EnvConfig, st: EnvState, exog, mppt, t, y1, flag):
 def step(cfg: EnvConfig, st: EnvState, action, p_pack=None):
     """One control interval of every env (SPEC.md §9).
 
-    The window runs through `ops.window.rk4_window_batch`: the CUDA kernel
-    for tensors on the card, its plain version for tensors on the CPU.
-    ``p_pack`` is the [29, N] params pack, hoisted by callers that step the
-    same params many times (it is computed here when omitted)."""
+    With ``cfg.integrator == "rk4"`` the window runs through
+    `ops.window.rk4_window_batch`: the CUDA kernel for tensors on the card,
+    its plain version for tensors on the CPU. ``p_pack`` is the [29, N]
+    params pack, hoisted by callers that step the same params many times (it
+    is computed here when omitted). The implicit schemes integrate
+    `rhs_core.rhs` through `ode.implicit` (no kernel; ``p_pack`` unused)."""
     t, exog, mppt, flag = _pre_window(cfg, st, action)
+    if cfg.integrator != "rk4":
+        y1 = IMPLICIT_WINDOWS[cfg.integrator](
+            partial(_rhs, der=st.der, exog=exog), st.y, t, cfg.dt_ctrl,
+            cfg.n_sub)
+        return _post_window(cfg, st, exog, mppt, t, y1, flag)
     if p_pack is None:
         p_pack = pack_struct(st.der, P_FIELDS)
     y1 = rk4_window_batch(st.y, t, p_pack, pack_struct(exog, U_FIELDS),

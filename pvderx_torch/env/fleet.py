@@ -9,9 +9,10 @@ contract as `env/core.py`:
 Every per-unit leaf is ``[N, M, ...]`` (the unit axis second), the event
 schedule is ``[N, K, D]`` and shared by the env's units. The physics puts
 the unit axis last (``[n_s, N, M]``), so the state is permuted at that
-boundary. The window always runs through
+boundary. With ``integrator="rk4"`` the window runs through
 `ops.window.rk4_fleet_window_batch`: the CUDA fleet kernel for tensors on
-the card, its plain version for tensors on the CPU.
+the card, its plain version for tensors on the CPU. The implicit schemes
+(`ode.implicit`) solve the stacked ``[M·n_s]`` system of each env.
 
 Two control granularities:
 
@@ -32,11 +33,12 @@ from functools import partial
 
 import torch
 
-from pvderx_torch._struct import replace, struct
+from pvderx_torch._struct import replace, struct, tree_map
 from pvderx_torch.env import core
 from pvderx_torch.env.core import OBS_DIM, EnvConfig
 from pvderx_torch.env.vector import autoreset, rollout_with
 from pvderx_torch.ode import newton_solve
+from pvderx_torch.ode.implicit import WINDOWS as IMPLICIT_WINDOWS
 from pvderx_torch.ops.window import (
     P_FIELDS, U_FIELDS, pack_struct, rk4_fleet_window_batch, unpack_struct)
 from pvderx_torch.params import DERParams, Exog
@@ -115,6 +117,18 @@ def _algebra(y, t, der, fu) -> rhs_core.Algebra:
     Per-unit leaves come out [N, M], the PCC's (v_pos) [N, 1]."""
     return fleet.fleet_algebra(y.permute(2, 0, 1), t[:, None], der, fu,
                                like(y))
+
+
+def _rhs(y, t, der, fu):
+    """dY/dt of every fleet env: y [N, M, n_s], t [N], der/fu [N, M]
+    leaves. A complex y [N, K, M, n_s] (K copies of each env, as
+    `ode.implicit` passes for the Jacobian of the stacked unit-major
+    [M·n_s] system) broadcasts each env's inputs over its copies."""
+    extra = (1,) * (y.dim() - 3)
+    bc = lambda x: x.reshape(x.shape[:1] + extra + x.shape[1:])
+    return fleet.fleet_rhs(y.movedim(-1, 0), t.reshape(-1, *extra, 1),
+                           tree_map(bc, der), tree_map(bc, fu),
+                           TorchXP(der.rf.dtype, y.device)).movedim(0, -1)
 
 
 def _rhs_one(yf, pk, uk, *, n_ph: int, xp: TorchXP):
@@ -276,11 +290,18 @@ def _post_window(fc: FleetConfig, st: FleetState, fu, mppt, t, y1):
 
 def step(fc: FleetConfig, st: FleetState, action, p_pack=None):
     """One control interval of every fleet env (SPEC.md §11). The window
-    runs through `ops.window.rk4_fleet_window_batch`. ``p_pack`` is the
-    [29, N, M] params pack, hoisted by callers that step the same params
-    many times (computed here when omitted)."""
+    scheme follows ``fc.base.integrator``: "rk4" runs through
+    `ops.window.rk4_fleet_window_batch`, with ``p_pack`` the [29, N, M]
+    params pack, hoisted by callers that step the same params many times
+    (computed here when omitted); the implicit schemes solve the stacked
+    [M·n_s] system of each env (``p_pack`` unused)."""
     cfg = fc.base
     t, fu, mppt = _pre_window(fc, st, action)
+    if cfg.integrator != "rk4":
+        y1 = IMPLICIT_WINDOWS[cfg.integrator](
+            partial(_rhs, der=st.der, fu=fu), st.y, t, cfg.dt_ctrl,
+            cfg.n_sub)
+        return _post_window(fc, st, fu, mppt, t, y1)
     if p_pack is None:
         p_pack = pack_struct(st.der, P_FIELDS)
     y1 = rk4_fleet_window_batch(st.y, t, p_pack, pack_struct(fu, U_FIELDS),

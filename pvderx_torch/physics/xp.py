@@ -8,7 +8,10 @@ directly:
   and device, so a float64 evaluation gets float64 angle tables (numpy's
   default) and a card evaluation gets its constants on the card;
 - ``maximum``/``minimum`` accept a Python float on either side (torch's own
-  reject it), and ``mean`` takes numpy's ``axis=`` and ``keepdims=``.
+  reject it), and on complex tensors select by the real part (the complex
+  step of `pvderx_torch.ode.implicit`: the derivative is the selected
+  side's); ``mean`` takes numpy's ``axis=`` and ``keepdims=``, ``stack``
+  numpy's ``axis=``.
 """
 from __future__ import annotations
 
@@ -48,8 +51,8 @@ class TorchXP:
     def minimum(self, a, b):
         return _minmax(a, b, torch.minimum, "max")
 
-    def stack(self, seq):
-        return torch.stack([self._t(s) for s in seq])
+    def stack(self, seq, axis=0):
+        return torch.stack([self._t(s) for s in seq], dim=axis)
 
     def concatenate(self, seq):
         return torch.cat([self._t(s) for s in seq])
@@ -63,8 +66,12 @@ class TorchXP:
 
 
 def _minmax(a, b, both, clamp_kw):
-    """Elementwise max/min where either side may be a Python number."""
+    """Elementwise max/min where either side may be a Python number; on a
+    complex side, by the real part (ties take ``a``)."""
     ta, tb = isinstance(a, torch.Tensor), isinstance(b, torch.Tensor)
+    if (ta and a.is_complex()) or (tb and b.is_complex()):
+        ra, rb = (a.real if ta else a), (b.real if tb else b)
+        return torch.where(ra >= rb if clamp_kw == "min" else ra <= rb, a, b)
     if ta and tb:
         return both(a, b)
     if ta:

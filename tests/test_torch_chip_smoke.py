@@ -11,6 +11,7 @@
   `sass_issue_floor_ms` turn that into the SASS-issue floor, and
   `trace_launch` reads a launch's warps from a profiler trace.
 """
+import numpy as np
 import pytest
 
 from chip_smoke import kernel_name, ptxas_summary
@@ -197,3 +198,73 @@ def test_torch_chip_smoke_df_gate_reads_preset50_at_the_references_n_sub():
     assert DF_GATE_CASES == (("10", N_SUB), ("50", N_SUB), ("50", 80))
     # benchmarks/DUALFLOAT.json df32_max_abs_err_preset50, taken at n_sub=80
     assert DF_GATE_REFERENCE == {("50", 80): pytest.approx(3.23e-7, rel=1e-3)}
+
+
+# ---------------------------------------------------------------------------
+# the slice's phases (implicit, fleet_implicit, gym, sim, config), rehearsed
+# on the CPU at tiny sizes: no card, so no kernel launch is counted
+# ---------------------------------------------------------------------------
+def test_torch_chip_smoke_final_obs_check_raises_on_a_missing_row():
+    from chip_smoke import check_final_obs
+
+    done = np.array([False, True, False])
+    obs = np.zeros((3, 13), np.float32)
+    check_final_obs({"final_obs": obs, "_final_obs": done}, done)
+    check_final_obs({}, np.zeros(3, bool))
+    for info, msg in [({}, "without final_obs"),
+                      ({"final_obs": obs}, "without final_obs"),
+                      ({"final_obs": obs, "_final_obs": ~done}, "done rows"),
+                      ({"final_obs": obs + np.nan, "_final_obs": done},
+                       "not finite")]:
+        with pytest.raises(AssertionError, match=msg):
+            check_final_obs(info, done)
+    with pytest.raises(AssertionError, match="no episode done"):
+        check_final_obs({"final_obs": obs, "_final_obs": done},
+                        np.zeros(3, bool))
+
+
+def test_torch_chip_smoke_slice_constants_are_the_references():
+    """The implicit window cases carry tests/test_variants.py:84-107's
+    bounds, the env phase its `_sag_cfg` scenario, the sim phase the
+    schedule of tests/test_sim_diag.py:14-22."""
+    from chip_smoke import (IMPLICIT_WINDOW_CASES, SAG_SCEN, _sag_exog,
+                            _sim_exogs)
+
+    assert IMPLICIT_WINDOW_CASES == (("trapezoid", 10, 5e-6),
+                                     ("trapezoid", 20, 1e-6),
+                                     ("backward_euler", 40, 5e-5))
+    assert SAG_SCEN == dict(p_sag=1.0, p_freq=0.0, sag_depth_lo=0.5,
+                            sag_depth_hi=0.5, sag_t_lo=0.3, sag_t_hi=0.3,
+                            sag_dur_lo=0.3, sag_dur_hi=0.3)
+    assert [_sag_exog(k).v_g for k in (29, 30, 59, 60)] == [1.0, 0.5, 0.5,
+                                                             1.0]
+    ex = _sim_exogs(180)
+    assert len(ex) == 180
+    assert (ex[59].s_irr, ex[60].s_irr, ex[119].v_g, ex[120].v_g,
+            ex[143].v_g, ex[144].v_g) == (1000.0, 500.0, 1.0, 0.7, 0.7, 1.0)
+
+
+def test_torch_chip_smoke_slice_phases_run_on_the_cpu():
+    """Every new phase at a tiny size on the CPU: its checks pass and it
+    prints its line (the card's checks of launch counts are skipped off
+    the card)."""
+    import chip_smoke as cs
+
+    errs = cs.check_implicit_window("cpu", cases=[("trapezoid", 10, 5e-6)],
+                                    n=1, n_windows=3)
+    assert set(errs) == {("trapezoid", 10)}
+    env = cs.run_implicit_env("cpu", "cpu", n_envs=2, steps=2)
+    assert set(env) == {"trapezoid", "backward_euler"}
+    assert all(v["k1_launches"] == 0 and v["dones"] == 2 for v in env.values())
+    fl = cs.run_fleet_implicit("cpu", "cpu", n_envs=1, m=2, n_sub=2, steps=2,
+                               fit_envs=2)
+    assert fl["max_abs_diff_f32_f64"] <= cs.FLEET_IMPLICIT_TOL
+    assert fl["fit_finite"] and fl["fit_envs"] == 2
+    gym = cs.run_gym("cpu", "cpu", n_envs=2, vec_steps=2, steps=2, m=2)
+    assert gym["vector"]["dones"] == 2 and set(gym) == {
+        "gymnasium", "vector", "single", "fleet", "fleet_per_unit"}
+    sim = cs.run_sim("cpu", "cpu", t_stop=0.05, knob_stop=0.05)
+    assert sim["windows"] == 3 and sim["max_abs_err"] <= cs.GATE_TOL
+    cfgs = cs.run_config("cpu", "cpu", n_envs=2, steps=1)
+    assert set(cfgs) == {"env_config2_voltvar", "env_config3_lvrt",
+                         "env_config4_mppt"}

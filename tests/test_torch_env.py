@@ -129,12 +129,13 @@ def test_torch_reset_draws_within_scenario_ranges():
     (dict(continuous=True, anomaly_detect=True), ValueError),
     (dict(scen="bad_prob"), ValueError),
     (dict(der="bad_rf"), ValueError),
-    (dict(integrator="trapezoid", n_sub=10), NotImplementedError),
-    (dict(integrator="backward_euler", n_sub=60), NotImplementedError),
+    (dict(integrator="trapezoid", n_sub=10), None),
+    (dict(integrator="backward_euler", n_sub=60), None),
 ])
 def test_torch_make_env_config_rejections(kw, exc):
-    """The port rejects what the JAX `make_env_config` rejects (ValueError);
-    the implicit integrators, which the JAX one accepts, are not ported."""
+    """The port rejects what the JAX `make_env_config` rejects (ValueError)
+    and accepts what it accepts: the implicit integrators, below RK4's
+    n_sub bound too (``exc`` None)."""
     from pvderx.params import make_params as jax_make_params
     from pvderx_torch.params import make_params
 
@@ -146,10 +147,14 @@ def test_torch_make_env_config_rejections(kw, exc):
             k["der"] = mp("10", validate=False, rf=-1.0)
         return mod.make_env_config("10", dtype=dtype, **k, **extra)
 
-    if exc is ValueError:
-        with pytest.raises(ValueError):
-            build(jcore, jcore.ScenarioConfig, jax_make_params, jnp.float64)
-    else:
+    if exc is None:
+        cfg_j = build(jcore, jcore.ScenarioConfig, jax_make_params,
+                      jnp.float64)
+        cfg = build(core, core.ScenarioConfig, make_params, torch.float64,
+                    device="cpu")
+        assert (cfg.integrator, cfg.n_sub) == (cfg_j.integrator, cfg_j.n_sub)
+        return
+    with pytest.raises(ValueError):
         build(jcore, jcore.ScenarioConfig, jax_make_params, jnp.float64)
     with pytest.raises(exc):
         build(core, core.ScenarioConfig, make_params, torch.float64,

@@ -147,8 +147,13 @@ def test_torch_fleet_rollout_autoreset_and_per_unit_obs():
 
 
 def test_torch_fleet_config_rejections():
+    """The port rejects m = 0, and accepts an implicit integrator below
+    RK4's n_sub bound, as the JAX `make_fleet_config` does."""
     with pytest.raises(ValueError):
         make_fleet_config("10", m=0, device="cpu")
-    with pytest.raises(NotImplementedError):
-        make_fleet_config("10", m=2, integrator="trapezoid", n_sub=10,
-                          device="cpu")
+    fc = make_fleet_config("10", m=2, integrator="trapezoid", n_sub=10,
+                           device="cpu")
+    fc_j = jfleet.make_fleet_config("10", m=2, integrator="trapezoid",
+                                    n_sub=10)
+    assert (fc.m, fc.base.integrator, fc.base.n_sub) == (
+        fc_j.m, fc_j.base.integrator, fc_j.base.n_sub)

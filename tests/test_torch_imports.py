@@ -30,7 +30,12 @@ def test_torch_import_pulls_in_no_jax():
     assert {"pvderx_torch.ops.window", "pvderx_torch.physics.fleet",
             "pvderx_torch.env.fleet", "pvderx_torch.oracle",
             "pvderx_torch.ops._build", "pvderx_torch.ops.dualfloat",
-            "pvderx_torch.env.vector"} <= set(mods) and len(mods) >= 23
+            "pvderx_torch.env.vector", "pvderx_torch.ode.implicit",
+            "pvderx_torch.config", "pvderx_torch.models",
+            "pvderx_torch.sim.dynamic", "pvderx_torch.env.gym_adapter",
+            "pvderx_torch.utils.logging", "pvderx_torch.utils.printing",
+            "pvderx_torch.utils.transforms", "pvderx_torch.diag.metrics",
+            "pvderx_torch.diag.plots"} <= set(mods) and len(mods) >= 36
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
