@@ -111,11 +111,31 @@ Phases, one line each (a failing phase raises, so the script exits non-zero):
               float64 with RK4 on the card raises.
 23. config  — every packaged `env_*.json` through `load_env_config` on the
               card: reset 1024 envs, 10 steps through K1.
+24. diag_profiler — `diag.profiler.trace` of 3 main-path steps (32768
+              envs), one config-5 fleet step and one df32 step;
+              `device_op_summary` must count K1 = 3, K2 = 1, K3 = 1; the
+              main step's env-steps/s by `Stopwatch` beside phase 5's.
+25. diag_debug — `diag.debug.checked_step` passes a clean 32768-env state
+              (one K1 launch) and names the env of an injected NaN;
+              `debug_mode` passes a clean step and traps a NaN fed to K1,
+              naming the kernel; the grad guard raises for K1, K2 and K3
+              inputs that require grad, before any launch.
+26. diag_checkpoint — `diag.checkpoint` save / restore of PPO (16384
+              envs), DQN and SAC (4096): a runner restored into one built
+              from another seed trains on bitwise equal to the original.
+27. grad    — tests/test_grad.py's loss on the card through the eager
+              window in float64: autograd within 1e-5 of a central finite
+              difference, 5 gradient steps lower it; the float32 gradient;
+              one value_and_grad of `examples.gain_tuning` at 12 windows,
+              and at its default 60 where that scales to <= 120 s.
+28. examples — the four `pvderx_torch.examples` as subprocesses, started
+              together: each exits 0; K1 / K2 launches as their arguments
+              give.
 
 Then the kernel table as one JSON line (each kernel with its bound and its
-lane-issue bound: operations / (132 SMs * 128 FP32 lanes * max SM clock),
-and the launches of the learner phases and of phases 19-23), the card
-line, and the device line.
+lane-issue bound from `pvderx_torch.diag.roofline`: operations / (132 SMs *
+128 FP32 lanes * max SM clock), and the launches of the learner phases and
+of phases 19-28), the card line, and the device line.
 Needs one CUDA card; imports torch, numpy, scipy and pvderx_torch only
 (gymnasium if installed).
 """
@@ -149,10 +169,6 @@ DF_GATE_REFERENCE = {("50", 80): 3.228964920998223e-07}
 WARM_STEPS = 60
 CHUNK_STEPS = 600        # = the episode horizon: truncation and autoreset fire
 DT = 1.0 / 60.0
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, float32 outside the
-# tensor cores
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_PER_S = 67e12
 
 
 def phase(name: str, **kv):
@@ -172,16 +188,18 @@ def _sync(device):
 
 
 def _time_ms(fn, reps: int, device) -> float:
-    """Device time per call by CUDA events around ``reps`` calls."""
-    fn()
-    _sync(device)
+    """Device time per call by CUDA events around ``reps`` calls, each end
+    synced by `diag.profiler.force_sync` of a call's output."""
+    from pvderx_torch.diag.profiler import force_sync
+
+    force_sync(fn())
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
-        fn()
+        out = fn()
     end.record()
-    torch.cuda.synchronize(device)
+    force_sync(out)
     return start.elapsed_time(end) / reps
 
 
@@ -535,9 +553,10 @@ def run_fleet_main(device, card, n_envs=FLEET_ENVS, m=FLEET_M, n_sub=N_SUB,
     from pvderx_torch.env import (
         fleet_obs_dim, fleet_rollout, make_fleet_batch_fns, make_fleet_config)
     from pvderx_torch.env import fleet
+    from pvderx_torch.diag.roofline import window_bound_ms
     from pvderx_torch.ops.window import (
-        P_FIELDS, U_FIELDS, fleet_window_bytes, fleet_window_ops, pack_struct,
-        rk4_fleet_window_batch, rk4_fleet_window_batch_ref)
+        P_FIELDS, U_FIELDS, pack_struct, rk4_fleet_window_batch,
+        rk4_fleet_window_batch_ref)
 
     cuda = torch.device(device).type == "cuda"
     kw = dict(dtype=torch.float32, n_sub=n_sub, device=device)
@@ -570,8 +589,7 @@ def run_fleet_main(device, card, n_envs=FLEET_ENVS, m=FLEET_M, n_sub=N_SUB,
                              device)
         plain_ms = _time_ms(lambda: rk4_fleet_window_batch_ref(*args, **wkw),
                             2, device)
-    bytes_ms = 1e3 * fleet_window_bytes(n_envs, m, 1) / PEAK_BYTES_PER_S
-    ops_ms = 1e3 * fleet_window_ops(n_envs, m, 1, n_sub) / PEAK_F32_PER_S
+    bound = window_bound_ms("fleet_window", n_envs, m=m, n_sub=n_sub)
     step_ms = 1e3 * out["chunk_s"] / chunk
     rate = n_envs * chunk / out["chunk_s"]
     phase("fleet_main", card=card, n_envs=n_envs, m=m, n_sub=n_sub,
@@ -579,7 +597,7 @@ def run_fleet_main(device, card, n_envs=FLEET_ENVS, m=FLEET_M, n_sub=N_SUB,
           env_steps_per_s=rate, der_steps_per_s=rate * m, step_ms=step_ms,
           kernel_ms_per_launch=kernel_ms,
           kernel_share_of_step=(kernel_ms / step_ms if kernel_ms else None),
-          plain_window_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+          plain_window_ms=plain_ms, bound_ms=bound["bound_ms"],
           peak_mem_mib=peak_mib, launches=launches, steps=out["steps"],
           dones=out["dones"], rew_sum=out["rew_sum"], finite=out["finite"])
     phase("fleet_linear", card=card, two_chunks_over_one=out["ratio"],
@@ -605,8 +623,7 @@ def run_fleet_main(device, card, n_envs=FLEET_ENVS, m=FLEET_M, n_sub=N_SUB,
     if cuda and moved != per_unit_steps:
         raise AssertionError(f"per-unit launches {moved} != {per_unit_steps}")
     return dict(launches=launches, kernel_ms=kernel_ms, plain_ms=plain_ms,
-                bound_ms=max(bytes_ms, ops_ms),
-                bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+                bound_ms=bound["bound_ms"], bound_by=bound["bound_by"])
 
 
 def df_inputs(preset, n, seed, device, **kw):
@@ -754,9 +771,9 @@ def run_df_main(device, card, n_envs=N_ENVS, n_sub=N_SUB, warm=WARM_STEPS,
     """Phase 13: the df32 tier at full width through the df32 kernel."""
     from pvderx_torch.env import core, make_batch_fns_df, make_env_config
     from pvderx_torch.env import rollout_df
+    from pvderx_torch.diag.roofline import window_bound_ms
     from pvderx_torch.ops.dualfloat import (
-        rk4_window_batch_df, rk4_window_batch_df_ref, window_df_bytes,
-        window_df_ops)
+        rk4_window_batch_df, rk4_window_batch_df_ref)
     from pvderx_torch.ops.window import (
         P_FIELDS, U_FIELDS, pack_struct, rk4_window_batch)
 
@@ -805,10 +822,8 @@ def run_df_main(device, card, n_envs=N_ENVS, n_sub=N_SUB, warm=WARM_STEPS,
         _, *args50 = df_inputs("50", n_envs, 50, device)
         k3_50_ms = _time_ms(lambda: rk4_window_batch_df(
             *args50, n_ph=3, n_sub=n_sub, dt=cfg.dt_ctrl), 10, device)
-    bytes_ms = 1e3 * window_df_bytes(n_envs, 1) / PEAK_BYTES_PER_S
-    ops_ms = 1e3 * window_df_ops(n_envs, 1, n_sub) / PEAK_F32_PER_S
-    bytes50_ms = 1e3 * window_df_bytes(n_envs, 3) / PEAK_BYTES_PER_S
-    ops50_ms = 1e3 * window_df_ops(n_envs, 3, n_sub) / PEAK_F32_PER_S
+    bound = window_bound_ms("window_df", n_envs, n_sub=n_sub)
+    bound50 = window_bound_ms("window_df", n_envs, n_ph=3, n_sub=n_sub)
     step_ms = 1e3 * out["chunk_s"] / chunk
     phase("df_main", card=card, n_envs=n_envs, n_sub=n_sub, reset_s=reset_s,
           init_res_max=init_res_max, timed_steps=chunk,
@@ -816,9 +831,9 @@ def run_df_main(device, card, n_envs=N_ENVS, n_sub=N_SUB, warm=WARM_STEPS,
           kernel_ms_per_launch=kernel_ms, k1_ms_per_launch=k1_ms,
           k3_over_k1=(kernel_ms / k1_ms if kernel_ms else None),
           kernel_share_of_step=(kernel_ms / step_ms if kernel_ms else None),
-          bound_ms=max(bytes_ms, ops_ms), plain_window_ms=plain_ms,
+          bound_ms=bound["bound_ms"], plain_window_ms=plain_ms,
           plain_n_sub=n_sub, k3_preset50_ms_per_launch=k3_50_ms,
-          k3_preset50_bound_ms=max(bytes50_ms, ops50_ms),
+          k3_preset50_bound_ms=bound50["bound_ms"],
           peak_mem_mib=peak_mib,
           launches=launches,
           steps=out["steps"], dones=out["dones"], rew_sum=out["rew_sum"],
@@ -829,9 +844,8 @@ def run_df_main(device, card, n_envs=N_ENVS, n_sub=N_SUB, warm=WARM_STEPS,
     if not lo_max > 0.0:
         raise AssertionError("df_main: y_lo is zero everywhere")
     return dict(launches=launches, kernel_ms=kernel_ms, plain_ms=plain_ms,
-                plain_n_sub=n_sub, bound_ms=max(bytes_ms, ops_ms),
-                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-                preset50_ms=k3_50_ms)
+                plain_n_sub=n_sub, bound_ms=bound["bound_ms"],
+                bound_by=bound["bound_by"], preset50_ms=k3_50_ms)
 
 
 # The learners (pvderx_torch.learn) at the reference's learner-benchmark
@@ -1467,6 +1481,445 @@ def run_config(device, card, n_envs=1024, steps=10):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the diagnostics (pvderx_torch.diag), gradients through the eager window and
+# the examples: K1, K2 and K3 on new paths
+# ---------------------------------------------------------------------------
+DIAG_TRACE_STEPS = 3
+GRAD_FD_TOL = 1e-5        # autograd vs central FD, float64 (tests/test_grad.py)
+GRAD_WINDOWS, GRAD_SUB = 6, 40     # tests/test_grad.py's loss
+# gain tuning's default value_and_grad (60 windows x 72 substeps) is timed
+# when 12 windows scale to at most this many seconds
+TUNE_LIMIT_S = 120.0
+TUNE_WINDOWS, TUNE_PROBE_WINDOWS = 60, 12
+# each example on the card at a small size: (module, arguments, the launches
+# it must make of K1 and K2)
+EXAMPLES = (
+    ("standalone_simulation", ["--tstop", "0.5"], {"k1": 30, "k2": 0}),
+    ("gym_rollout", ["--steps", "30"], {"k1": 30, "k2": 0}),
+    ("fleet_simulation", ["--m", "16", "--n-envs", "64", "--steps", "30"],
+     {"k1": 0, "k2": 30}),
+    ("gain_tuning", ["--iters", "2", "--windows", "3", "--n-sub", "40"],
+     {"k1": 0, "k2": 0}),
+)
+_KERNEL_SHORT = {"k1": "window_kernel", "k2": "fleet_window_kernel",
+                 "k3": "window_df_kernel"}
+
+
+def traced_kernel_launches(rows) -> dict:
+    """K1, K2 and K3 launches in `device_op_summary` rows, by kernel name."""
+    out = dict.fromkeys(_KERNEL_SHORT, 0)
+    for name, _, n in rows:
+        short = kernel_name(name).split("<")[0]
+        for k, v in _KERNEL_SHORT.items():
+            if short == v:
+                out[k] += n
+    return out
+
+
+def run_diag_profiler(device, card, main_rate=None, n_envs=N_ENVS,
+                      fleet_envs=FLEET_ENVS, m=FLEET_M, n_sub=N_SUB,
+                      steps=DIAG_TRACE_STEPS, reps=60,
+                      paths=("main", "fleet", "df32")):
+    """Phase 24: `diag.profiler.trace` around ``steps`` main-path steps at
+    full width, one config-5 fleet step and one df32 step (each after a
+    warm-up step); `device_op_summary` of each trace must list the path's
+    kernel once per step (K1, K2, K3), as its launch count does. Then the
+    main step timed by `Stopwatch` (``reps`` chained steps) beside the main
+    phase's env-steps/s."""
+    import os
+    import tempfile
+
+    from pvderx_torch.diag.profiler import (
+        Stopwatch, device_op_summary, force_sync, trace)
+    from pvderx_torch.env import (
+        make_batch_fns, make_batch_fns_df, make_env_config,
+        make_fleet_batch_fns, make_fleet_config)
+    from pvderx_torch.ops.dualfloat import rk4_window_batch_df
+    from pvderx_torch.ops.window import rk4_fleet_window_batch, rk4_window_batch
+
+    cuda = torch.device(device).type == "cuda"
+    kw = dict(dtype=torch.float32, n_sub=n_sub, device=device)
+    cfg = make_env_config("10", **kw)
+    gen = torch.Generator(device=device).manual_seed(0)
+    drives = (("main", make_batch_fns(cfg), n_envs, steps, rk4_window_batch,
+               "k1"),
+              ("fleet", make_fleet_batch_fns(make_fleet_config("10", m=m, **kw)),
+               fleet_envs, 1, rk4_fleet_window_batch, "k2"),
+              ("df32", make_batch_fns_df(cfg), n_envs, 1, rk4_window_batch_df,
+               "k3"))
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        for name, (reset_batch, step_batch), n, k, kernel, key in drives:
+            if name not in paths:
+                continue
+            state, _ = reset_batch(n, gen)
+            a = torch.zeros(n, dtype=torch.int64, device=device)
+            state = step_batch(state, a, gen)[0]
+            force_sync(state)
+            _zero_counts()
+            t = time.perf_counter()
+            with trace(os.path.join(root, name)) as logdir:
+                for _ in range(k):
+                    state = step_batch(state, a, gen)[0]
+            secs = time.perf_counter() - t
+            launches = kernel.launches
+            rows = device_op_summary(logdir, top=None)
+            traced = traced_kernel_launches(rows)
+            out[name] = dict(n_envs=n, steps=k, launches=launches,
+                             traced=traced, traced_s=secs,
+                             device_ms=sum(ms for _, ms, _ in rows),
+                             top=[[nm[:60], ms, c] for nm, ms, c in rows[:4]])
+            if name == "main":
+                sw = Stopwatch(lambda s: step_batch(s, a, gen), state,
+                               n_warmup=1)
+                out[name].update(
+                    stopwatch_env_steps_per_s=sw.rate(reps, n),
+                    stopwatch_reps=reps, main_env_steps_per_s=main_rate)
+            phase("diag_profiler", card=card, path=name, **out[name])
+            if cuda and not traced[key] == launches == k:
+                raise AssertionError(f"diag_profiler {name}: traced {traced}, "
+                                     f"launches {launches}, steps {k}")
+    return out
+
+
+def run_diag_debug(device, card, n_envs=N_ENVS, n_sub=N_SUB, guard_n=64):
+    """Phase 25: `diag.debug.checked_step` on a clean full-width state
+    passes with one K1 launch, and names the env whose state holds a NaN;
+    `debug_mode` lets a clean step through and traps a NaN fed to K1,
+    naming the kernel; the grad guard raises, before any launch, for K1,
+    K2 and K3 inputs that require grad."""
+    import dataclasses
+
+    from pvderx_torch.diag.debug import checked_step, debug_mode
+    from pvderx_torch.env import core, make_batch_fns, make_env_config
+    from pvderx_torch.ops.dualfloat import rk4_window_batch_df
+    from pvderx_torch.ops.window import (
+        P_FIELDS, U_FIELDS, pack_struct, rk4_fleet_window_batch,
+        rk4_window_batch)
+
+    cuda = torch.device(device).type == "cuda"
+    cfg = make_env_config("10", dtype=torch.float32, n_sub=n_sub,
+                          device=device)
+    reset_batch, _ = make_batch_fns(cfg)
+    state, _ = reset_batch(n_envs, torch.Generator(device=device).manual_seed(0))
+    a = torch.zeros(n_envs, dtype=torch.int64, device=device)
+    step = checked_step(cfg)
+    _zero_counts()
+    err, _ = step(state, a)
+    clean = err.get()
+    launches = rk4_window_batch.launches
+    bad_env = n_envs // 3
+    y = state.y.clone()
+    y[bad_env, 0] = float("nan")
+    caught = step(dataclasses.replace(state, y=y), a)[0].get()
+    with debug_mode():
+        core.step(cfg, state, a)                    # clean: no trap
+    t_win, exog, _, _ = core._pre_window(cfg, state, a)
+    args = (y, t_win, pack_struct(state.der, P_FIELDS),
+            pack_struct(exog, U_FIELDS))
+    trapped = None
+    try:
+        with debug_mode():
+            rk4_window_batch(*args, n_ph=1, n_sub=n_sub, dt=cfg.dt_ctrl)
+    except FloatingPointError as e:
+        trapped = str(e)
+
+    def needs_grad(inputs):
+        *rest, pp, uu = inputs
+        return (*rest, pp.requires_grad_(True), uu)
+
+    guards = {}
+    for key, kernel, call in (
+            ("k1", rk4_window_batch, lambda: rk4_window_batch(
+                *needs_grad(window_inputs("10", guard_n, 0, device)[1:]),
+                n_ph=1, n_sub=n_sub, dt=DT)),
+            ("k2", rk4_fleet_window_batch, lambda: rk4_fleet_window_batch(
+                *needs_grad(fleet_inputs("10", guard_n, 4, 0, device)[1:]),
+                n_ph=1, m=4, n_sub=n_sub, dt=DT)),
+            ("k3", rk4_window_batch_df, lambda: rk4_window_batch_df(
+                *needs_grad(df_inputs("10", guard_n, 0, device)[1:]),
+                n_ph=1, n_sub=n_sub, dt=DT))):
+        before = kernel.launches
+        try:
+            out = call()
+            guards[key] = dict(raised=None, grad_fn=out[0].grad_fn is not None)
+        except RuntimeError as e:
+            guards[key] = dict(raised=str(e)[:80])
+        guards[key]["launches"] = kernel.launches - before
+    out = dict(n_envs=n_envs, clean=clean, launches=launches, bad_env=bad_env,
+               caught=caught, trapped=trapped, grad_guard=guards)
+    phase("diag_debug", card=card, **out)
+    if clean is not None:
+        raise AssertionError(f"diag_debug: clean step failed its checks: {clean}")
+    if not (caught or "").startswith(
+            f"non-finite state after step: env {bad_env}"):
+        raise AssertionError(f"diag_debug: NaN in env {bad_env} read {caught}")
+    if trapped is None:
+        raise AssertionError("diag_debug: debug_mode let a NaN through K1")
+    if cuda and (launches != 1 or "CUDA window kernel" not in trapped
+                 or any(g["raised"] is None or g["launches"]
+                        for g in guards.values())):
+        raise AssertionError(f"diag_debug: launches {launches}, trap "
+                             f"{trapped!r}, grad guard {guards}")
+    return out
+
+
+def bitwise_differences(a, b, path="") -> list:
+    """Paths where two `diag.checkpoint.plain` trees differ; tensors are
+    compared bit for bit."""
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+        same = (isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor)
+                and a.dtype == b.dtype and a.shape == b.shape
+                and a.numpy().tobytes() == b.numpy().tobytes())
+        return [] if same else [path]
+    if isinstance(a, dict) and isinstance(b, dict):
+        if set(a) != set(b):
+            return [path]
+        return [p for k in a
+                for p in bitwise_differences(a[k], b[k], f"{path}/{k}")]
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+        if len(a) != len(b):
+            return [path]
+        return [p for i, (x, y) in enumerate(zip(a, b))
+                for p in bitwise_differences(x, y, f"{path}/{i}")]
+    return [] if a == b else [path]
+
+
+def _nondeterministic_ops(ts, runner, n_steps) -> list:
+    """The warnings of `torch.use_deterministic_algorithms(warn_only=True)`
+    over ``n_steps`` train steps: each names an op without a deterministic
+    implementation."""
+    import warnings
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            for _ in range(n_steps):
+                runner, _ = ts(runner)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return sorted({str(w.message)[:160] for w in seen})
+
+
+def run_diag_checkpoint(device, card, ppo_envs=PPO_ENVS,
+                        off_envs=OFFPOLICY_ENVS, n_sub=N_SUB,
+                        hidden=(128, 128), more=2):
+    """Phase 26: `diag.checkpoint` on the learners at their phases' widths
+    (PPO as ppo_main, DQN and SAC as dqn_main and sac_main): one train step,
+    `save` (the file loads with ``weights_only=True``), `restore` into a
+    runner built from another seed, ``more`` train steps on both; the two
+    runners must be bitwise equal (every tensor, state_dict and generator
+    state), and the metrics of the last step too. A difference is reported
+    with the ops that `torch.use_deterministic_algorithms` names."""
+    import os
+    import tempfile
+
+    from pvderx_torch.diag import checkpoint
+    from pvderx_torch.env import make_env_config
+    from pvderx_torch.learn import (
+        DQNConfig, PPOConfig, SACConfig, make_dqn, make_ppo, make_sac)
+    from pvderx_torch.ops.window import rk4_window_batch
+
+    cuda = torch.device(device).type == "cuda"
+    kw = dict(dtype=torch.float32, n_sub=n_sub, device=device)
+    offpolicy = dict(rollout_len=4, n_updates=4, batch_size=1024,
+                     capacity=262144)
+    learners = (
+        ("ppo", make_ppo, make_env_config("10", **kw),
+         PPOConfig(rollout_len=16, n_epochs=4, n_minibatch=4), ppo_envs),
+        ("dqn", make_dqn, make_env_config("10", **kw), DQNConfig(**offpolicy),
+         off_envs),
+        ("sac", make_sac, make_env_config("10", continuous=True, **kw),
+         SACConfig(**offpolicy), off_envs))
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        for name, make, cfg, lcfg, n in learners:
+            init_runner, ts, _ = make(cfg, lcfg, hidden=hidden)
+            runner = init_runner(n, torch.Generator(device=device).manual_seed(0))
+            runner, _ = ts(runner)
+            t = time.perf_counter()
+            path = checkpoint.save(os.path.join(root, f"{name}.pt"), runner)
+            save_s = time.perf_counter() - t
+            torch.load(path, weights_only=True)
+            fresh = init_runner(n, torch.Generator(device=device).manual_seed(1))
+            t = time.perf_counter()
+            restored = checkpoint.restore(path, fresh)
+            restore_s = time.perf_counter() - t
+            _zero_counts()
+            for _ in range(more):
+                runner, m1 = ts(runner)
+                restored, m2 = ts(restored)
+            diffs = bitwise_differences(checkpoint.plain(runner),
+                                        checkpoint.plain(restored))
+            diffs += bitwise_differences(
+                *({k: torch.as_tensor(v).cpu() for k, v in m.items()}
+                  for m in (m1, m2)), "metrics")
+            out[name] = dict(
+                n_envs=n, file_mib=os.path.getsize(path) / 2 ** 20,
+                save_s=save_s, restore_s=restore_s, steps_after=more,
+                launches=rk4_window_batch.launches, differences=diffs[:8])
+            if diffs:
+                out[name]["nondeterministic_ops"] = _nondeterministic_ops(
+                    ts, checkpoint.restore(path, fresh), more)
+            phase("diag_checkpoint", card=card, learner=name, **out[name])
+            want = 2 * more * lcfg.rollout_len
+            if diffs or (cuda and out[name]["launches"] != want):
+                raise AssertionError(
+                    f"diag_checkpoint {name}: differences {diffs[:8]}, K1 "
+                    f"launches {out[name]['launches']} (want {want})")
+    return out
+
+
+def _grad_loss(kp_dc, p, u, y0, n_windows=GRAD_WINDOWS, n_sub=GRAD_SUB):
+    """tests/test_grad.py's loss: the Vdc tracking error over ``n_windows``
+    windows of a sustained 0.7 pu sag, through the eager RK4 window."""
+    import dataclasses
+
+    from pvderx_torch.ode import rk4_window
+    from pvderx_torch.physics import rhs_core
+    from pvderx_torch.physics.xp import TorchXP
+
+    p2 = dataclasses.replace(p, kp_dc=kp_dc)
+    xp = TorchXP(y0.dtype, y0.device)
+    y, total = y0, 0.0
+    for k in range(n_windows):
+        y = rk4_window(lambda yy, tt: rhs_core.rhs(yy, tt, p2, u, xp), y,
+                       k * DT, DT, n_sub)
+        total = total + (y[6] - u.vdc_ref) ** 2
+    return total
+
+
+def _grad_of(kp, p, u, y0, n_windows=GRAD_WINDOWS):
+    kp = kp.detach().requires_grad_(True)
+    loss = _grad_loss(kp, p, u, y0, n_windows)
+    (g,) = torch.autograd.grad(loss, kp)
+    return loss.item(), g.item()
+
+
+def run_grad(device, card, steps=5, windows=GRAD_WINDOWS,
+             tune_windows=TUNE_WINDOWS, tune_probe=TUNE_PROBE_WINDOWS,
+             tune_sub=None):
+    """Phase 27: gradients through the eager window on the card.
+    tests/test_grad.py's loss in float64: autograd within GRAD_FD_TOL
+    (relative) of a central finite difference, and ``steps`` gradient steps
+    on kp_dc lower the loss; the float32 gradient beside it. Then one
+    `value_and_grad` of `examples.gain_tuning` (float32, 72 substeps) at
+    ``tune_probe`` windows, and at its default ``tune_windows`` where the
+    probe scales to at most TUNE_LIMIT_S."""
+    import dataclasses
+
+    from pvderx_torch import make_params, nominal_exog, oracle
+    from pvderx_torch.diag.profiler import force_sync
+    from pvderx_torch.examples import gain_tuning
+
+    p0, u0 = make_params("10"), nominal_exog()
+    y0 = oracle.steady_state(p0, u0)
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        p = p0.to(dtype, device)
+        u = dataclasses.replace(u0, v_g=0.7).to(dtype, device)
+        y = torch.tensor(y0, dtype=dtype, device=device)
+        kp = torch.tensor(p0.kp_dc, dtype=dtype, device=device)
+        t = time.perf_counter()
+        loss0, g = _grad_of(kp, p, u, y, windows)
+        rec = dict(loss=loss0, grad=g, value_and_grad_s=time.perf_counter() - t,
+                   windows=windows, rhs_evals=4 * windows * GRAD_SUB)
+        if dtype == torch.float64:
+            eps = 1e-5 * max(abs(p0.kp_dc), 1.0)
+            with torch.no_grad():
+                fd = (_grad_loss(kp + eps, p, u, y, windows).item()
+                      - _grad_loss(kp - eps, p, u, y, windows).item()) / (2 * eps)
+            lr = 0.05 * abs(p0.kp_dc) / max(abs(g), 1e-12)
+            for _ in range(steps):
+                kp = kp - lr * _grad_of(kp, p, u, y, windows)[1]
+            with torch.no_grad():
+                loss1 = _grad_loss(kp, p, u, y, windows).item()
+            rec.update(fd=fd, fd_rel_err=abs(g - fd) / abs(fd), tol=GRAD_FD_TOL,
+                       descent_steps=steps, loss_after=loss1)
+        out[str(dtype).split(".")[-1]] = rec
+    f64 = out["float64"]
+
+    def tune(n_windows):
+        loss, gains = gain_tuning.make_loss(windows=n_windows, n_sub=tune_sub,
+                                            device=device)
+        t = time.perf_counter()
+        v, grads = gain_tuning.value_and_grad(loss, gains)
+        force_sync((v, grads))
+        return dict(windows=n_windows, seconds=time.perf_counter() - t,
+                    loss=v.item(), grads={k: g.item() for k, g in grads.items()})
+
+    runs = [tune(tune_probe)]
+    estimate = runs[0]["seconds"] * tune_windows / tune_probe
+    if tune_windows != tune_probe and estimate <= TUNE_LIMIT_S:
+        runs.append(tune(tune_windows))
+    out["gain_tuning"] = dict(runs=runs, default_windows=tune_windows,
+                              default_estimate_s=estimate,
+                              limit_s=TUNE_LIMIT_S)
+    phase("grad", card=card, **out)
+    if not (np.isfinite(f64["grad"]) and f64["fd_rel_err"] <= GRAD_FD_TOL):
+        raise AssertionError(f"grad: autograd {f64['grad']} vs FD {f64['fd']}")
+    if not f64["loss_after"] < f64["loss"]:
+        raise AssertionError(f"grad: {steps} steps did not lower the loss")
+    if not all(np.isfinite(g) for r in runs for g in r["grads"].values()):
+        raise AssertionError(f"grad: gain tuning gradient not finite {runs}")
+    return out
+
+
+def run_examples(device, card, examples=EXAMPLES, timeout=600):
+    """Phase 28: the four examples (`pvderx_torch.examples`) as
+    subprocesses, all started together, on the card (``--cpu`` off it):
+    each must exit 0, and the ones that step the env must launch K1 / K2
+    as many times as their arguments give."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    code = ("import json, runpy, sys\n"
+            "mod, sys.argv = sys.argv[1], sys.argv[1:]\n"
+            "runpy.run_module(mod, run_name='__main__', alter_sys=True)\n"
+            "from pvderx_torch.ops.window import (rk4_fleet_window_batch,"
+            " rk4_window_batch)\n"
+            "print('LAUNCHES ' + json.dumps({'k1': rk4_window_batch.launches,"
+            " 'k2': rk4_fleet_window_batch.launches}))\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    cuda = torch.device(device).type == "cuda"
+    procs = {}
+    t = time.perf_counter()
+    try:
+        for name, args, _ in examples:
+            cmd = [sys.executable, "-c", code, f"pvderx_torch.examples.{name}",
+                   *args] + ([] if cuda else ["--cpu"])
+            procs[name] = subprocess.Popen(cmd, cwd=root, env=env,
+                                           stdout=subprocess.PIPE,
+                                           stderr=subprocess.PIPE, text=True)
+        results = {name: p.communicate(timeout=timeout)
+                   for name, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    out = {}
+    for name, args, want in examples:
+        stdout, stderr = results[name]
+        line = [ln for ln in stdout.splitlines() if ln.startswith("LAUNCHES ")]
+        launches = json.loads(line[-1][9:]) if line else None
+        out[name] = dict(args=args, rc=procs[name].returncode,
+                         launches=launches, want=want)
+        phase("examples", card=card, example=name, **out[name])
+        if procs[name].returncode != 0 or launches is None:
+            raise AssertionError(f"example {name} failed "
+                                 f"(rc {procs[name].returncode}):\n"
+                                 f"{stderr[-2000:]}")
+        if cuda and launches != want:
+            raise AssertionError(f"example {name}: launches {launches}, "
+                                 f"want {want}")
+    phase("examples", card=card, seconds=time.perf_counter() - t)
+    return out
+
+
 def kernel_name(mangled: str) -> str:
     """`window_kernel<3>` and the like for a window kernel's mangled or
     demangled name; any other name as it is."""
@@ -1510,10 +1963,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    from pvderx_torch.diag import roofline
     from pvderx_torch.ops import _build
-    from pvderx_torch.ops.dualfloat import window_df_ops
-    from pvderx_torch.ops.window import (
-        fleet_window_ops, window_bytes, window_ops)
 
     device = "cuda"
     kind = torch.cuda.get_device_name(0)
@@ -1550,16 +2001,26 @@ def main() -> int:
     gym_out = run_gym(device, card, main_rate=main_out["env_steps_per_s"])
     sim_out = run_sim(device, card)
     config_out = run_config(device, card)
+    prof_out = run_diag_profiler(device, card,
+                                 main_rate=main_out["env_steps_per_s"])
+    debug_out = run_diag_debug(device, card)
+    ckpt_out = run_diag_checkpoint(device, card)
+    run_grad(device, card)
+    examples_out = run_examples(device, card)
 
-    n_bytes = window_bytes(N_ENVS, 1)
-    n_ops = window_ops(N_ENVS, 1, N_SUB)
-    bytes_ms = 1e3 * n_bytes / PEAK_BYTES_PER_S
-    ops_ms = 1e3 * n_ops / PEAK_F32_PER_S
-    # one operation per FP32 lane per clock at the card's max SM clock
-    issue = lambda ops: 1e3 * ops / (132 * 128 * clock_mhz * 1e6)
-    issue_ms = issue(n_ops)
-    phase("bound", bytes=n_bytes, ops=n_ops, bytes_ms=bytes_ms,
-          ops_ms_at_67tflops=ops_ms, ops_ms_at_lane_issue=issue_ms)
+    # the bounds at the main path's shapes (diag.roofline), the lane-issue
+    # floor at the card's max SM clock
+    chip = roofline.at_clock(clock_mhz)
+    bound = lambda *a, **kw: roofline.window_bound_ms(*a, n_sub=N_SUB,
+                                                      chip=chip, **kw)
+    k1, k1_50 = bound("window", N_ENVS), bound("window", N_ENVS, n_ph=3)
+    k2 = bound("fleet_window", FLEET_ENVS, m=FLEET_M)
+    k3, k3_50 = bound("window_df", N_ENVS), bound("window_df", N_ENVS, n_ph=3)
+    phase("bound", bytes=k1["bytes"], ops=k1["ops"], bytes_ms=k1["bytes_ms"],
+          ops_ms_at_67tflops=k1["ops_ms"],
+          ops_ms_at_lane_issue=k1["issue_bound_ms"])
+    ex = lambda key: {k: v["launches"][key] for k, v in examples_out.items()
+                      if v["want"][key]}
     print(json.dumps({"kernels": [{
         "name": "rk4_window",
         "route": "cuda",
@@ -1569,11 +2030,11 @@ def main() -> int:
         "max_abs_err": kernel_err,
         "ms": main_out["kernel_ms"],
         "plain_ms": main_out["plain_ms"],
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "issue_bound_ms": issue_ms,
+        "bound_ms": k1["bound_ms"],
+        "bound_by": k1["bound_by"],
+        "issue_bound_ms": k1["issue_bound_ms"],
         "preset50_ms": main_out["preset50_ms"],
-        "preset50_issue_bound_ms": issue(window_ops(N_ENVS, 3, N_SUB)),
+        "preset50_issue_bound_ms": k1_50["issue_bound_ms"],
         "library_ms": None,
         "learner_launches": {"ppo_main": ppo_out["launches"],
                              "dqn_main": dqn_out["launches"],
@@ -1586,7 +2047,13 @@ def main() -> int:
             "config": {k: v["launches"] for k, v in config_out.items()},
             "implicit_env": {k: v["k1_launches"]
                              for k, v in implicit_out.items()},
-            "sim_knob_trapezoid": sim_out["knob_launches"]["trapezoid"]},
+            "sim_knob_trapezoid": sim_out["knob_launches"]["trapezoid"],
+            "diag_profiler_trace": prof_out["main"]["launches"],
+            "diag_checked_step": debug_out["launches"],
+            "diag_checkpoint": {k: v["launches"]
+                                for k, v in ckpt_out.items()},
+            "grad_guard": debug_out["grad_guard"]["k1"]["launches"],
+            "examples": ex("k1")},
     }, {
         "name": "rk4_fleet_window",
         "route": "cuda",
@@ -1596,10 +2063,9 @@ def main() -> int:
         "max_abs_err": fleet_err,
         "ms": fleet_out["kernel_ms"],
         "plain_ms": fleet_out["plain_ms"],
-        "bound_ms": fleet_out["bound_ms"],
-        "bound_by": fleet_out["bound_by"],
-        "issue_bound_ms": issue(fleet_window_ops(FLEET_ENVS, FLEET_M, 1,
-                                                 N_SUB)),
+        "bound_ms": k2["bound_ms"],
+        "bound_by": k2["bound_by"],
+        "issue_bound_ms": k2["issue_bound_ms"],
         "library_ms": None,
         "learner_launches": {
             "fleet_ppo": fleet_ppo_out["launches"],
@@ -1607,7 +2073,10 @@ def main() -> int:
         "slice_launches": {
             "gym_fleet": gym_out["fleet"]["launches"],
             "gym_fleet_per_unit": gym_out["fleet_per_unit"]["launches"],
-            "fleet_implicit": fleet_implicit_out["float32_k2_launches"]},
+            "fleet_implicit": fleet_implicit_out["float32_k2_launches"],
+            "diag_profiler_trace": prof_out["fleet"]["launches"],
+            "grad_guard": debug_out["grad_guard"]["k2"]["launches"],
+            "examples": ex("k2")},
     }, {
         "name": "rk4_window_df",
         "route": "cuda",
@@ -1618,12 +2087,15 @@ def main() -> int:
         "ms": df_out["kernel_ms"],
         "plain_ms": df_out["plain_ms"],
         "plain_n_sub": df_out["plain_n_sub"],
-        "bound_ms": df_out["bound_ms"],
-        "bound_by": df_out["bound_by"],
-        "issue_bound_ms": issue(window_df_ops(N_ENVS, 1, N_SUB)),
+        "bound_ms": k3["bound_ms"],
+        "bound_by": k3["bound_by"],
+        "issue_bound_ms": k3["issue_bound_ms"],
         "preset50_ms": df_out["preset50_ms"],
-        "preset50_issue_bound_ms": issue(window_df_ops(N_ENVS, 3, N_SUB)),
+        "preset50_issue_bound_ms": k3_50["issue_bound_ms"],
         "library_ms": None,
+        "slice_launches": {
+            "diag_profiler_trace": prof_out["df32"]["launches"],
+            "grad_guard": debug_out["grad_guard"]["k3"]["launches"]},
     }]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

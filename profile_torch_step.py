@@ -79,10 +79,12 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from pvderx_torch.diag.roofline import H100, at_clock, lane_issue_per_s
+
 
 N_ENVS, N_SUB, STEPS, WARM, TIMED = 32768, 64, 20, 10, 200
 FLEET_ENVS, FLEET_M = 4096, 16
-SMS, SCHEDULERS, FP32_LANES = 132, 4, 128   # per H100 SXM; per SM
+SMS, SCHEDULERS = H100["sms"], 4       # warp schedulers per SM
 GATE_EVERY = 25
 
 
@@ -161,15 +163,13 @@ def trace_launch(trace: dict) -> dict | None:
 
 
 def launch_of(fn) -> dict | None:
-    """`trace_launch` of one call of ``fn`` under the profiler."""
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    """`trace_launch` of one call of ``fn`` under `diag.profiler.trace`."""
+    from pvderx_torch.diag.profiler import trace, trace_events
+
     with tempfile.TemporaryDirectory() as d:
-        path = os.path.join(d, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            return trace_launch(json.load(f))
+        with trace(d):
+            fn()
+        return trace_launch({"traceEvents": trace_events(d)})
 
 
 def kernel_shapes(device: str = "cuda") -> dict:
@@ -211,13 +211,13 @@ def time_kernels(card: str) -> int:
     """The --kernels mode (see the module docstring)."""
     from chip_smoke import _time_ms
 
-    clock = max_clock_mhz()
+    issue_per_s = lane_issue_per_s(at_clock(max_clock_mhz()))
     for shape, (call, ops, reps) in kernel_shapes().items():
         ms = _time_ms(call, reps, "cuda")
         print(json.dumps({
             "card": card, "shape": shape, "n_sub": N_SUB, "reps": reps,
-            "ms": ms, "lane_issue_floor_ms":
-                1e3 * ops / (SMS * FP32_LANES * clock * 1e6)}), flush=True)
+            "ms": ms, "lane_issue_floor_ms": 1e3 * ops / issue_per_s}),
+            flush=True)
     return 0
 
 

@@ -44,6 +44,10 @@ _LAZY = {
     "EventBuilder": ("pvderx_torch.scenario", "EventBuilder"),
     "DynamicSimulation": ("pvderx_torch.sim", "DynamicSimulation"),
     "SimulationResults": ("pvderx_torch.diag.plots", "SimulationResults"),
+    "Stopwatch": ("pvderx_torch.diag.profiler", "Stopwatch"),
+    "compile_report": ("pvderx_torch.diag.profiler", "compile_report"),
+    "device_op_summary": ("pvderx_torch.diag.profiler", "device_op_summary"),
+    "trace": ("pvderx_torch.diag.profiler", "trace"),
 }
 
 # submodules resolvable as attributes (`pvderx_torch.env.make_env_config`)

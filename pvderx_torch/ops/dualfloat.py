@@ -31,7 +31,8 @@ import numpy as np
 import torch
 
 from pvderx_torch.ops.window import (
-    P_FIELDS, U_FIELDS, _check_single, unpack_struct)
+    P_FIELDS, U_FIELDS, _check_single, check_outputs, guard_launch,
+    unpack_struct)
 from pvderx_torch.params import DERParams, Exog
 from pvderx_torch.physics import rhs_core
 
@@ -442,6 +443,7 @@ def rk4_window_batch_df(y_hi, y_lo, t0, p_pack, u_pack, *, n_ph: int,
                     ("p_pack", p_pack), ("u_pack", u_pack)):
         if not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    guard_launch("df32 window", y_hi, y_lo, t0, p_pack, u_pack)
     from pvderx_torch.ops import _build
     lib = _build.load()
     hi, lo = torch.empty_like(y_hi), torch.empty_like(y_lo)
@@ -455,6 +457,7 @@ def rk4_window_batch_df(y_hi, y_lo, t0, p_pack, u_pack, *, n_ph: int,
         raise RuntimeError(
             f"df32 window kernel launch failed: {_build.error_string(err)}")
     rk4_window_batch_df.launches += 1
+    check_outputs("df32 window", hi, lo)
     return hi, lo
 
 

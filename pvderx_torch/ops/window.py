@@ -14,6 +14,14 @@ A wrapper launches its kernel on tensors that live on the card and runs the
 plain version (`*_ref`) on tensors that live on the CPU. There is no
 fallback between the two: a CUDA tensor launches the kernel or raises.
 
+The kernels have no backward. The plain versions are torch operations and
+differentiable; a launch with grad enabled and an input that requires grad
+raises (`guard_launch`) instead of returning an output that silently drops
+the window's share of the gradient: `pvderx_torch.ode.rk4_window` is the
+differentiable window. While `pvderx_torch.diag.debug.debug_mode` traps
+NaNs, which its dispatch mode cannot see inside a kernel, the launchers
+check their own outputs (`check_outputs`).
+
 Both compute what the reference Pallas kernel computes: exog held constant
 over the window; the window-invariant `Prep` hoisted once; the grid phasor
 evaluated twice per substep (k2/k3 share the half-point, and the endpoint is
@@ -34,8 +42,9 @@ U_FIELDS = [f.name for f in dataclasses.fields(Exog)]
 
 # Operations per env per RK4 substep of this window program (4 RHS
 # evaluations with hoisted Prep, 2 grid rotations, the Kahan combine), as
-# counted on the same program by the reference's jaxpr op counter
-# (pvderx/diag/roofline.py, recorded in benchmarks/ROOFLINE.json).
+# the reference's jaxpr op counter counts them (pvderx/diag/roofline.py);
+# `pvderx_torch.diag.roofline.substep_op_count` re-derives them from this
+# package's own program.
 OPS_PER_SUBSTEP = {1: 923, 3: 2371}
 
 
@@ -106,6 +115,28 @@ def _check_fleet(y, t0, p_pack, u_pack, n_ph, m):
            u_pack=(u_pack, (len(U_FIELDS), n, m)))
 
 
+def guard_launch(what: str, *inputs) -> None:
+    """Raise before a kernel launch whose output would drop autograd: grad is
+    enabled and an input requires grad."""
+    if torch.is_grad_enabled() and any(a.requires_grad for a in inputs):
+        raise RuntimeError(
+            f"the CUDA {what} kernel has no backward, and an input requires "
+            f"grad: differentiate through pvderx_torch.ode.rk4_window (the "
+            f"eager window), or launch under torch.no_grad()")
+
+
+def check_outputs(what: str, *outs) -> None:
+    """Under a dispatch mode that traps NaNs (``traps_nans``, as
+    `diag.debug.debug_mode`'s does), which cannot see inside a kernel:
+    raise if a kernel's output holds a NaN."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+
+    if (any(getattr(m, "traps_nans", False)
+            for m in _get_current_dispatch_mode_stack())
+            and any(bool(torch.isnan(o).any()) for o in outs)):
+        raise FloatingPointError(f"NaN in the output of the CUDA {what} kernel")
+
+
 def _launch(entry: str, what: str, y, t0, p_pack, u_pack, *dims, n_sub: int,
             dt: float):
     """Launch the C entry ``entry`` of the kernels' library on the current
@@ -119,6 +150,7 @@ def _launch(entry: str, what: str, y, t0, p_pack, u_pack, *dims, n_sub: int,
                     ("u_pack", u_pack)):
         if not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    guard_launch(what, y, t0, p_pack, u_pack)
     from pvderx_torch.ops import _build
     lib = _build.load()
     out = torch.empty_like(y)
@@ -182,6 +214,7 @@ def rk4_window_batch(y, t0, p_pack, u_pack, *, n_ph: int, n_sub: int,
     out = _launch("pvderx_rk4_window", "window", y, t0, p_pack, u_pack,
                   y.shape[0], n_ph, n_sub=n_sub, dt=dt)
     rk4_window_batch.launches += 1
+    check_outputs("window", out)
     return out
 
 
@@ -273,6 +306,7 @@ def rk4_fleet_window_batch(y, t0, p_pack, u_pack, *, n_ph: int, m: int,
     out = _launch("pvderx_rk4_fleet_window", "fleet window", y, t0, p_pack,
                   u_pack, y.shape[0], m, n_ph, n_sub=n_sub, dt=dt)
     rk4_fleet_window_batch.launches += 1
+    check_outputs("fleet window", out)
     return out
 
 

@@ -268,3 +268,85 @@ def test_torch_chip_smoke_slice_phases_run_on_the_cpu():
     cfgs = cs.run_config("cpu", "cpu", n_envs=2, steps=1)
     assert set(cfgs) == {"env_config2_voltvar", "env_config3_lvrt",
                          "env_config4_mppt"}
+
+
+def test_torch_chip_smoke_traced_kernel_launches_by_name():
+    """`traced_kernel_launches` counts K1, K2 and K3 rows of a
+    `device_op_summary`, mangled or demangled, and nothing else."""
+    from chip_smoke import traced_kernel_launches
+
+    rows = [("void (anonymous namespace)::window_kernel<1>(float const*)",
+             0.4, 3),
+            ("void (anonymous namespace)::fleet_window_kernel<1, 256>(int)",
+             0.2, 1),
+            (f"{_DF}ILi1EEEvPKfS2_S2_S2_S2_PfS3_iiff", 1.3, 1),
+            ("void at::native::vectorized_elementwise_kernel<4>(int)", 0.1, 40),
+            ("aten::mul", 2.0, 300)]
+    assert traced_kernel_launches(rows) == {"k1": 3, "k2": 1, "k3": 1}
+    assert traced_kernel_launches([]) == {"k1": 0, "k2": 0, "k3": 0}
+
+
+def test_torch_chip_smoke_bitwise_differences_are_bit_for_bit():
+    import torch
+
+    from chip_smoke import bitwise_differences
+
+    a = {"tensors": {"y": torch.tensor([0.0, float("nan")])},
+         "scalars": {"n": 3}}
+    same = {"tensors": {"y": torch.tensor([0.0, float("nan")])},
+            "scalars": {"n": 3}}
+    assert bitwise_differences(a, same) == []
+    neg = {"tensors": {"y": torch.tensor([-0.0, float("nan")])},
+           "scalars": {"n": 3}}
+    assert bitwise_differences(a, neg) == ["/tensors/y"]
+    assert bitwise_differences(a, {"tensors": {"y": torch.zeros(2)},
+                                   "scalars": {"n": 4}}) == [
+        "/tensors/y", "/scalars/n"]
+    assert bitwise_differences({"x": [1, 2]}, {"x": [1]}) == ["/x"]
+    assert bitwise_differences(torch.zeros(2), torch.zeros(3)) == [""]
+
+
+def test_torch_chip_smoke_diag_phases_run_on_the_cpu():
+    """Phases 24-26 at a tiny size on the CPU (launch counts are the card's
+    checks): the traced main and fleet steps, the checked step, the NaN
+    trap, and the bitwise resume of the three learners."""
+    import chip_smoke as cs
+
+    prof = cs.run_diag_profiler("cpu", "cpu", n_envs=3, fleet_envs=2, m=2,
+                                n_sub=40, steps=2, reps=2,
+                                paths=("main", "fleet"))
+    assert set(prof) == {"main", "fleet"} and prof["main"]["steps"] == 2
+    assert prof["main"]["stopwatch_env_steps_per_s"] > 0
+    assert prof["main"]["device_ms"] > 0           # the host track off the card
+    dbg = cs.run_diag_debug("cpu", "cpu", n_envs=3, n_sub=40, guard_n=2)
+    assert dbg["clean"] is None and dbg["bad_env"] == 1
+    assert dbg["caught"].startswith("non-finite state after step: env 1")
+    assert dbg["trapped"].startswith("NaN in the output of aten")
+    # off the card the plain windows run: differentiable, nothing to guard
+    assert all(g["raised"] is None and g["grad_fn"]
+               for g in dbg["grad_guard"].values())
+    ckpt = cs.run_diag_checkpoint("cpu", "cpu", ppo_envs=4, off_envs=4,
+                                  n_sub=40, hidden=(16, 16), more=1)
+    assert set(ckpt) == {"ppo", "dqn", "sac"}
+    assert all(v["differences"] == [] for v in ckpt.values())
+
+
+def test_torch_chip_smoke_grad_and_examples_phases_run_on_the_cpu():
+    """Phases 27-28 at a tiny size on the CPU: the float64 gradient against
+    its finite difference and one descent step, gain tuning's gradient at
+    one and two windows; the four examples as subprocesses with --cpu."""
+    import chip_smoke as cs
+
+    grad = cs.run_grad("cpu", "cpu", steps=1, windows=1, tune_windows=2,
+                       tune_probe=1, tune_sub=40)
+    assert grad["float64"]["fd_rel_err"] <= cs.GRAD_FD_TOL
+    assert grad["float64"]["loss_after"] < grad["float64"]["loss"]
+    assert [r["windows"] for r in grad["gain_tuning"]["runs"]] == [1, 2]
+    ex = cs.run_examples("cpu", "cpu", examples=(
+        ("standalone_simulation", ["--tstop", "0.05"], {"k1": 3, "k2": 0}),
+        ("gym_rollout", ["--steps", "3"], {"k1": 3, "k2": 0}),
+        ("fleet_simulation", ["--m", "2", "--n-envs", "2", "--steps", "2",
+                              "--n-sub", "40"], {"k1": 0, "k2": 2}),
+        ("gain_tuning", ["--iters", "1", "--windows", "1", "--n-sub", "40"],
+         {"k1": 0, "k2": 0})))
+    assert all(v["rc"] == 0 for v in ex.values()) and len(ex) == 4

@@ -35,7 +35,13 @@ def test_torch_import_pulls_in_no_jax():
             "pvderx_torch.sim.dynamic", "pvderx_torch.env.gym_adapter",
             "pvderx_torch.utils.logging", "pvderx_torch.utils.printing",
             "pvderx_torch.utils.transforms", "pvderx_torch.diag.metrics",
-            "pvderx_torch.diag.plots"} <= set(mods) and len(mods) >= 36
+            "pvderx_torch.diag.plots", "pvderx_torch.diag.profiler",
+            "pvderx_torch.diag.debug", "pvderx_torch.diag.checkpoint",
+            "pvderx_torch.diag.roofline", "pvderx_torch.examples",
+            "pvderx_torch.examples.standalone_simulation",
+            "pvderx_torch.examples.gym_rollout",
+            "pvderx_torch.examples.fleet_simulation",
+            "pvderx_torch.examples.gain_tuning"} <= set(mods) and len(mods) >= 45
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
@@ -61,7 +67,8 @@ def _imported_names(path):
 
 
 @pytest.mark.parametrize(
-    "path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    "path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "profile_torch_step.py"],
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_torch_source_imports_no_jax(path):
     for name in _imported_names(path):
