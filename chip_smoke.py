@@ -132,10 +132,52 @@ Phases, one line each (a failing phase raises, so the script exits non-zero):
               together: each exits 0; K1 / K2 launches as their arguments
               give.
 
+29-34. the distributed layer (`pvderx_torch.dist`, `run_dist`): world 1 in
+              this process on NCCL, world 2 and world 4 as gloo ranks that
+              share the card (`python -m pvderx_torch.dist.launch`, each rank
+              `python -m chip_smoke --dist-worker`); every line names its
+              backend and world size.
+    dist_env — world 1: the single-DER env at full width (32768 envs, preset
+              10, f32, n_sub 64, one 600-step horizon: truncation and
+              autoreset fire) through `rollout(mesh=)` equals the un-meshed
+              rollout from the same generator seed bit for bit, and the
+              meshed reset the un-meshed one; world 2 (2 x 16384), started
+              from slices of world 1's reset with its generator state: obs,
+              reward, done and y bitwise equal to world 1's; each rank's own
+              reset of its 16384 envs against world 1's within 1e-4 (the
+              batched solve may change algorithm with the batch size); then
+              the fleet (config 5, 2048 x 16, 60 steps, K2) and df32 (60
+              steps, K3) alike. Launches per rank == steps.
+    dist_ppo — PPO at the learner benchmark width (16384 envs, rollout 16,
+              4 x 4, hidden 128²): one train step at world 2 from world 1's
+              runner against world 1's step, params within 1e-5, reward_mean
+              within 1e-6, the replicas bitwise equal across the ranks; 5
+              timed train steps at each world size (env-steps/s), the
+              all-reduces' share of one update; fleet PPO (2048 x 16,
+              aggregate) for 3 timed steps at world 2.
+    dist_offpolicy — DQN and SAC at 4096 envs (rollout 4, 4 updates of 1024,
+              capacity 262144) alike: world 2 against world 1 within 1e-5,
+              replicas bitwise, 3 timed train steps each.
+    dist_tp — PPO on the (env=1, model=2) and (env=2, model=2) meshes from
+              `shard_runner_tp` of world 1's runner against world 1's DP-only
+              step: loss and params within rtol 1e-5 / atol 1e-6
+              (tests/test_tp.py:69-74); Dense_0's weight and its Adam moment
+              half on each model rank; the TP train step timed.
+    dist_checkpoint — a world-2 PPO runner saved (`diag.checkpoint` over the
+              mesh), restored into one built from another seed, both trained
+              a step: bitwise equal; a DP checkpoint (env axis 2) restored
+              onto (env=2, model=2) continues with the loss and params
+              bitwise equal to `shard_runner_tp` of the saved runner, and
+              onto a 1-D mesh of 4 env ranks raises.
+    dist_examples — `train_ppo --tp 2`, `train_dqn` and `train_sac` as 2 ranks
+              each, started together: each exits 0 and launches K1 as its
+              arguments give on every rank.
+              Then one line with the seconds of each part.
+
 Then the kernel table as one JSON line (each kernel with its bound and its
 lane-issue bound from `pvderx_torch.diag.roofline`: operations / (132 SMs *
 128 FP32 lanes * max SM clock), and the launches of the learner phases and
-of phases 19-28), the card line, and the device line.
+of phases 19-34), the card line, and the device line.
 Needs one CUDA card; imports torch, numpy, scipy and pvderx_torch only
 (gymnasium if installed).
 """
@@ -1920,6 +1962,674 @@ def run_examples(device, card, examples=EXAMPLES, timeout=600):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 29-34: the distributed layer (`pvderx_torch.dist`)
+# ---------------------------------------------------------------------------
+# The widths of the dist phases: the main path's, the learners' benchmark
+# widths, config 5's fleet; examples at a small size.
+DIST = dict(n_envs=N_ENVS, steps=CHUNK_STEPS, short=60, fleet_envs=2048,
+            m=FLEET_M, n_sub=N_SUB, ppo_envs=PPO_ENVS, off_envs=OFFPOLICY_ENVS,
+            hidden=[128, 128], ppo=[16, 4, 4], off=[4, 4, 1024, 262144],
+            timed=5, off_timed=3, fleet_timed=3, tp_timed=2,
+            examples=[["train_ppo", ["--tp", "2", "--n-envs", "1024",
+                                     "--updates", "2"], 32],
+                      ["train_dqn", ["--n-envs", "1024", "--updates", "2"],
+                       16],
+                      ["train_sac", ["--n-envs", "512", "--updates", "2"],
+                       16]])
+DIST_PARAM_TOL = 1e-5        # W ranks vs one rank, params (test_dist.py:73)
+DIST_REWARD_TOL = 1e-6       # reward_mean (test_dist.py:74)
+DIST_RESET_TOL = 1e-4        # a reset of N/W envs vs the slice of N's
+DIST_TP_RTOL, DIST_TP_ATOL = 1e-5, 1e-6   # test_tp.py:69-74
+
+
+def _dist_cfgs(device, s):
+    """The env configs of the dist phases: (single-DER, fleet)."""
+    from pvderx_torch.env import make_env_config, make_fleet_config
+
+    kw = dict(dtype=torch.float32, n_sub=s["n_sub"], device=device)
+    return (make_env_config("10", horizon=s["steps"], **kw),
+            make_fleet_config("10", m=s["m"], **kw))
+
+
+def _dist_learners(device, s, mesh=None):
+    """{name: (init_runner, train_step, n_envs, metric)} of the dist phases'
+    learners at their widths; ``mesh`` as `make_ppo`'s."""
+    from pvderx_torch.env import make_env_config
+    from pvderx_torch.learn import (
+        DQNConfig, PPOConfig, SACConfig, make_dqn, make_ppo, make_sac)
+
+    cfg, fc = _dist_cfgs(device, s)
+    kw = dict(hidden=tuple(s["hidden"]), mesh=mesh)
+    t, e, b = s["ppo"]
+    ppo = PPOConfig(rollout_len=t, n_epochs=e, n_minibatch=b)
+    rl, nu, bs, cap = s["off"]
+    off = dict(rollout_len=rl, n_updates=nu, batch_size=bs, capacity=cap)
+    cont = make_env_config("10", dtype=torch.float32, n_sub=s["n_sub"],
+                           device=device, continuous=True)
+    return {
+        "ppo": (*make_ppo(cfg, ppo, **kw)[:2], s["ppo_envs"], "loss"),
+        "fleet_ppo": (*make_ppo(fc, ppo, **kw)[:2], s["fleet_envs"], "loss"),
+        "dqn": (*make_dqn(cfg, DQNConfig(**off), **kw)[:2], s["off_envs"],
+                "loss"),
+        "sac": (*make_sac(cont, SACConfig(**off), **kw)[:2], s["off_envs"],
+                "critic_loss")}
+
+
+def _dist_env_fns(kind, device, s, mesh=None):
+    """(reset_batch, roll(state, obs, gen, n_steps), n_envs) of an env leg."""
+    from pvderx_torch.dist.mesh import draw_rows
+    from pvderx_torch.env import (
+        fleet_rollout, make_batch_fns, make_batch_fns_df,
+        make_fleet_batch_fns, rollout, rollout_df)
+
+    cfg, fc = _dist_cfgs(device, s)
+    zero = lambda o, g: torch.zeros(len(o), dtype=torch.int64,
+                                    device=o.device)
+    if kind == "fleet":
+        rand = lambda o, g: draw_rows(mesh, lambda sh: torch.randint(
+            0, 5, sh, generator=g, device=o.device), (len(o),))
+        return (make_fleet_batch_fns(fc, mesh)[0],
+                lambda st, ob, g, n: fleet_rollout(fc, st, ob, rand, n, g,
+                                                   mesh), s["fleet_envs"])
+    if kind == "df32":
+        return (make_batch_fns_df(cfg, mesh)[0],
+                lambda st, ob, g, n: rollout_df(cfg, st, ob, zero, n, g,
+                                                mesh), s["n_envs"])
+    return (make_batch_fns(cfg, mesh)[0],
+            lambda st, ob, g, n: rollout(cfg, st, ob, zero, n, g, mesh),
+            s["n_envs"])
+
+
+def _dist_env_steps(kind, s):
+    return s["steps"] if kind == "env" else s["short"]
+
+
+def _gen(device, seed):
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def _host(tree):
+    """A state (or the df32 carry, a tuple) with every tensor on the CPU."""
+    from pvderx_torch._struct import tree_map
+
+    if isinstance(tree, tuple):
+        return tuple(_host(v) for v in tree)
+    return tree_map(lambda x: x.cpu(), tree)
+
+
+def _kernel_of(kind):
+    from pvderx_torch.ops.dualfloat import rk4_window_batch_df
+    from pvderx_torch.ops.window import rk4_fleet_window_batch, rk4_window_batch
+
+    return {"fleet": rk4_fleet_window_batch,
+            "df32": rk4_window_batch_df}.get(kind, rk4_window_batch)
+
+
+def _flat_params(runner):
+    mods = [getattr(runner, k) for k in ("net", "actor", "critic")
+            if hasattr(runner, k)]
+    return [p.detach() for m in mods for p in m.parameters()]
+
+
+def _max_err(a, b) -> float:
+    return max(float((x.detach().cpu().float() - y.cpu().float()).abs().max())
+               for x, y in zip(a, b))
+
+
+def _replicas_equal(params, mesh) -> bool:
+    """Every rank of the env axis holds the same bits of ``params``."""
+    flat = torch.cat([p.reshape(-1) for p in params])[None]
+    every = mesh.all_gather(flat)
+    return all(torch.equal(every[0], every[i]) for i in range(len(every)))
+
+
+def _dist_world1(device, card, s, workdir, backend):
+    """World 1 in this process (the real backend's path: NCCL on the card):
+    the env legs from one seeded reset each, bitwise against the un-meshed
+    rollout; the learners' one-rank train step from their saved runners.
+    Writes what the ranks compare with."""
+    import os
+
+    from pvderx_torch import dist
+    from pvderx_torch.diag import checkpoint
+
+    dist.init_multihost(f"file://{os.path.join(workdir, 'world1')}", 1, 0,
+                        backend=backend)
+    mesh = dist.make_mesh(device=device)
+    out = {"backend": backend, "world": 1}
+    for kind in ("env", "fleet", "df32"):
+        reset, _, n = _dist_env_fns(kind, device, s)
+        reset_m, roll_m, _ = _dist_env_fns(kind, device, s, mesh)
+        _, roll, _ = _dist_env_fns(kind, device, s)
+        steps = _dist_env_steps(kind, s)
+        t = time.perf_counter()
+        state, obs = reset(n, _gen(device, 11))
+        _sync(device)
+        reset_s = time.perf_counter() - t
+        st_m, obs_m = reset_m(n, _gen(device, 11))
+        y = lambda st: (st[0] if kind == "df32" else st).y
+        reset_same = bool(torch.equal(y(st_m), y(state))
+                          and torch.equal(obs_m, obs))
+        torch.save({"state": _host(state), "obs": obs.cpu()},
+                   os.path.join(workdir, f"{kind}-reset.pt"))
+        ref = roll(state, obs, _gen(device, 12), steps)
+        _zero_counts()
+        t = time.perf_counter()
+        got = roll_m(state, obs, _gen(device, 12), steps)
+        float(got[2].sum())
+        roll_s = time.perf_counter() - t
+        launches = _kernel_of(kind).launches
+        same = torch.equal(y(ref[0]), y(got[0])) and all(
+            torch.equal(a, b) for a, b in zip(ref[1:], got[1:]))
+        torch.save({"obs": ref[1].cpu(), "rews": ref[2].cpu(),
+                    "dones": ref[3].cpu(), "y": y(ref[0]).cpu()},
+                   os.path.join(workdir, f"{kind}-ref.pt"))
+        out[kind] = dict(n_envs=n, steps=steps, launches=launches,
+                         bitwise_vs_unmeshed=same,
+                         reset_bitwise_vs_unmeshed=reset_same,
+                         dones=int(ref[3].sum()), reset_s=reset_s,
+                         env_steps_per_s=n * steps / roll_s)
+        del state, obs, st_m, obs_m, ref, got
+    learners = _dist_learners(device, s)
+    meshed = _dist_learners(device, s, mesh)
+    for name in ("ppo", "dqn", "sac"):
+        init, _, n, metric = learners[name]
+        runner = init(n, _gen(device, 0))
+        checkpoint.save(os.path.join(workdir, f"{name}0.pt"), runner)
+        _, ts_m, _, _ = meshed[name]
+        _zero_counts()
+        runner, m = ts_m(dist.shard_runner(runner, mesh))
+        rec = {"params": [p.cpu().clone() for p in _flat_params(runner)],
+               "metrics": {k: float(v) for k, v in m.items()}}
+        torch.save(rec, os.path.join(workdir, f"{name}-w1.pt"))
+        timed = s["timed"] if name == "ppo" else s["off_timed"]
+        runner, m, host_s, collect_ms, update_ms = _time_train(
+            ts_m, runner, timed, device, metric)
+        rl = s["ppo"][0] if name == "ppo" else s["off"][0]
+        out[name] = dict(n_envs=n, launches=_kernel_of("env").launches,
+                         env_steps=(1 + timed) * rl,
+                         env_steps_per_s=n * rl * timed / host_s,
+                         train_step_ms=1e3 * host_s / timed,
+                         update_ms_per_train_step=update_ms / timed,
+                         metrics=rec["metrics"])
+        del runner
+    dist.shutdown()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+# -- the rank side (python -m chip_smoke --dist-worker WORKDIR LEG ...) -----
+def _leg_env(kind, workdir, mesh, s):
+    import os
+
+    from pvderx_torch import dist
+
+    dev = mesh.device
+    reset_m, roll_m, n = _dist_env_fns(kind, dev, s, mesh)
+    steps = _dist_env_steps(kind, s)
+    saved = torch.load(os.path.join(workdir, f"{kind}-reset.pt"),
+                       map_location=dev, weights_only=False)
+    ref = torch.load(os.path.join(workdir, f"{kind}-ref.pt"),
+                     map_location=dev, weights_only=False)
+    sl = mesh.rows(n)
+    state = dist.shard_batch(saved["state"], mesh)
+    obs = dist.shard_batch(saved["obs"], mesh)
+    y = lambda st: (st[0] if kind == "df32" else st).y
+    _zero_counts()
+    dist.sync_hosts()
+    t = time.perf_counter()
+    st, ob, rews, dones = roll_m(state, obs, _gen(dev, 12), steps)
+    float(rews.sum())
+    roll_s = time.perf_counter() - t
+    launches = _kernel_of(kind).launches
+    same = {"obs": torch.equal(ob, ref["obs"][sl]),
+            "rews": torch.equal(rews, ref["rews"][:, sl]),
+            "dones": torch.equal(dones, ref["dones"][:, sl]),
+            "y": torch.equal(y(st), ref["y"][sl])}
+    st_r, obs_r = reset_m(n, _gen(dev, 11))
+    return dict(kind=kind, n_envs=n, local_envs=sl.stop - sl.start,
+                steps=steps, launches=launches, bitwise=same,
+                roll_s=roll_s, dones=int(dones.sum()),
+                reset_err=float((y(st_r) - y(saved["state"])[sl]).abs().max()),
+                reset_obs_err=float((obs_r - saved["obs"][sl]).abs().max()))
+
+
+def _whole_runner(name, workdir, dev, s):
+    """The runner world 1 saved, rebuilt whole on this rank."""
+    import os
+
+    from pvderx_torch.diag import checkpoint
+
+    init, _, n, _ = _dist_learners(dev, s)[name]
+    return checkpoint.restore(os.path.join(workdir, f"{name}0.pt"),
+                              init(n, _gen(dev, 1)))
+
+
+class _CollectiveClock:
+    """Host seconds spent in ``torch.distributed.all_reduce`` while on (the
+    device synced before and after each call)."""
+
+    def __init__(self, device):
+        import torch.distributed as tdist
+
+        self.device, self.seconds, self.calls = device, 0.0, 0
+        self._dist, self._orig = tdist, tdist.all_reduce
+
+    def __enter__(self):
+        def timed(*a, **kw):
+            _sync(self.device)
+            t = time.perf_counter()
+            out = self._orig(*a, **kw)
+            _sync(self.device)
+            self.seconds += time.perf_counter() - t
+            self.calls += 1
+            return out
+        self._dist.all_reduce = timed
+        return self
+
+    def __exit__(self, *exc):
+        self._dist.all_reduce = self._orig
+
+
+def _leg_learner(name, workdir, mesh, s):
+    import os
+
+    from pvderx_torch import dist
+
+    dev = mesh.device
+    _, ts, n, metric = _dist_learners(dev, s, mesh)[name]
+    rl = s["ppo"][0] if name in ("ppo", "fleet_ppo") else s["off"][0]
+    timed = {"ppo": s["timed"], "fleet_ppo": s["fleet_timed"]}.get(
+        name, s["off_timed"])
+    out = dict(learner=name, n_envs=n, rollout_len=rl)
+    _zero_counts()
+    if name == "fleet_ppo":
+        runner = _dist_learners(dev, s, mesh)[name][0](n, _gen(dev, 0))
+    else:
+        runner = dist.shard_runner(_whole_runner(name, workdir, dev, s), mesh)
+        _zero_counts()
+        runner, m = ts(runner)
+        want = torch.load(os.path.join(workdir, f"{name}-w1.pt"),
+                          weights_only=False)
+        out.update(
+            param_err=_max_err(_flat_params(runner), want["params"]),
+            reward_mean_err=abs(float(m["reward_mean"])
+                                - want["metrics"]["reward_mean"]),
+            replicas_bitwise=_replicas_equal(_flat_params(runner), mesh))
+    runner, m, host_s, collect_ms, update_ms = _time_train(
+        ts, runner, timed, dev, metric)
+    out.update(timed_train_steps=timed, host_s=host_s,
+               collect_ms_per_train_step=collect_ms / timed,
+               update_ms_per_train_step=update_ms / timed,
+               launches=_kernel_of("fleet" if name == "fleet_ppo"
+                                   else "env").launches,
+               env_steps=(timed + (name != "fleet_ppo")) * rl,
+               metrics={k: float(v) for k, v in m.items()})
+    if name == "ppo":
+        with _CollectiveClock(dev) as clock:
+            t = time.perf_counter()
+            runner, rollout = ts.collect(runner)
+            _sync(dev)
+            t = time.perf_counter()
+            runner, m = ts.update(runner, rollout)
+            _sync(dev)
+            upd_s = time.perf_counter() - t
+        out.update(all_reduce_s=clock.seconds, all_reduce_calls=clock.calls,
+                   instrumented_update_s=upd_s,
+                   all_reduce_share=clock.seconds / upd_s)
+    return out, runner
+
+
+def _leg_checkpoint(runner, workdir, mesh, s):
+    """The PPO runner of the ppo leg saved over the mesh, restored into one
+    built under the mesh from another seed, both trained one step."""
+    import os
+
+    from pvderx_torch.diag import checkpoint
+
+    init, ts, n, _ = _dist_learners(mesh.device, s, mesh)["ppo"]
+    path = checkpoint.save(os.path.join(workdir, "ckpt-w2"), runner, mesh)
+    restored = checkpoint.restore(path, init(n, _gen(mesh.device, 7)), mesh)
+    runner, m1 = ts(runner)
+    restored, m2 = ts(restored)
+    diffs = bitwise_differences(checkpoint.plain(runner),
+                                checkpoint.plain(restored))
+    return dict(files=sorted(os.listdir(path)), differences=diffs[:8],
+                loss=[float(m1["loss"]), float(m2["loss"])])
+
+
+def _leg_tp(workdir, mesh, s, n_env):
+    """PPO on the (n_env, 2) mesh from world 1's runner against world 1's
+    DP-only step; then the TP step timed."""
+    import os
+
+    from pvderx_torch import dist
+    from pvderx_torch.dist.tp import gather_param, make_mesh_2d
+
+    dev = mesh.device
+    mesh2 = make_mesh_2d(n_env, 2, device=dev)
+    _, ts, _, metric = _dist_learners(dev, s, mesh2)["ppo"]
+    runner = dist.shard_runner_tp(_whole_runner("ppo", workdir, dev, s),
+                                  mesh2)
+    w0 = tuple(runner.net.trunk[0].weight.shape)
+    _zero_counts()
+    runner, m = ts(runner)
+    full = [gather_param(p.detach(), p, mesh2).cpu().clone()
+            for p in runner.net.parameters()]
+    want = torch.load(os.path.join(workdir, "ppo-w1.pt"), weights_only=False)
+    excess = max(float(((a - b).abs() - DIST_TP_ATOL
+                        - DIST_TP_RTOL * b.abs()).max())
+                 for a, b in zip(full, want["params"]))
+    loss_w1 = want["metrics"]["loss"]
+    mu0 = runner.opt.state[runner.net.trunk[0].weight]["exp_avg"]
+    runner, m2, host_s, _, update_ms = _time_train(ts, runner, s["tp_timed"],
+                                                   dev, metric)
+    return dict(mesh=[n_env, 2], coords=list(mesh2.coords),
+                loss=float(m["loss"]), loss_w1=loss_w1,
+                loss_ok=abs(float(m["loss"]) - loss_w1)
+                <= DIST_TP_ATOL + DIST_TP_RTOL * abs(loss_w1),
+                param_excess_over_tol=excess,
+                param_err=_max_err(full, want["params"]),
+                dense0_local=list(w0), mu0_local=list(mu0.shape),
+                launches=_kernel_of("env").launches,
+                tp_train_step_ms=1e3 * host_s / s["tp_timed"],
+                tp_update_ms=update_ms / s["tp_timed"])
+
+
+def _leg_ckpt_tp(workdir, mesh, s):
+    """A DP checkpoint (env axis 2, whole nets) restored onto the (2, 2)
+    mesh continues bitwise as `shard_runner_tp` of the saved runner; onto
+    this 1-D mesh of 4 env ranks it raises."""
+    import os
+
+    from pvderx_torch import dist
+    from pvderx_torch.diag import checkpoint
+    from pvderx_torch.dist.tp import make_mesh_2d
+
+    dev = mesh.device
+    mesh2 = make_mesh_2d(2, 2, device=dev)
+    init, ts1, n, _ = _dist_learners(dev, s)["ppo"]
+    _, ts2, _, _ = _dist_learners(dev, s, mesh2)["ppo"]
+    original, _ = ts1(_whole_runner("ppo", workdir, dev, s))
+    path = checkpoint.save(os.path.join(workdir, "ckpt-dp2"),
+                           dist.shard_runner(original, mesh2), mesh2)
+    try:
+        checkpoint.restore(path, dist.shard_runner(init(n, _gen(dev, 8)),
+                                                   mesh), mesh)
+        wrong = None
+    except ValueError as e:
+        wrong = str(e)
+    direct = dist.shard_runner_tp(original, mesh2)
+    restored = checkpoint.restore(
+        path, dist.shard_runner_tp(init(n, _gen(dev, 9)), mesh2), mesh2)
+    direct, m1 = ts2(direct)
+    restored, m2 = ts2(restored)
+    same = all(torch.equal(a, b) for a, b in zip(direct.net.parameters(),
+                                                 restored.net.parameters()))
+    return dict(files=sorted(os.listdir(path)),
+                loss=[float(m1["loss"]), float(m2["loss"])],
+                params_bitwise=same, wrong_size_error=wrong)
+
+
+def dist_worker(workdir: str, legs) -> int:
+    """One rank of the dist phases: joins the launcher's group, runs the
+    legs in order, writes each leg's JSON to ``WORKDIR/LEG-rank{r}.json``."""
+    import os
+
+    from pvderx_torch import dist
+
+    with open(os.path.join(workdir, "sizes.json")) as fh:
+        s = json.load(fh)
+    device = s.pop("device")
+    dist.init_multihost()
+    mesh = dist.make_mesh(device=device)
+    rank = torch.distributed.get_rank()
+    ppo_runner = None
+    for leg in legs:
+        t = time.perf_counter()
+        if leg in ("env", "fleet", "df32"):
+            out = _leg_env(leg, workdir, mesh, s)
+        elif leg in ("ppo", "fleet_ppo", "dqn", "sac"):
+            out, runner = _leg_learner(leg, workdir, mesh, s)
+            ppo_runner = runner if leg == "ppo" else ppo_runner
+        elif leg == "checkpoint":
+            out = _leg_checkpoint(ppo_runner, workdir, mesh, s)
+        elif leg in ("tp12", "tp22"):
+            out = _leg_tp(workdir, mesh, s, 1 if leg == "tp12" else 2)
+        else:
+            out = _leg_ckpt_tp(workdir, mesh, s)
+        out.update(leg_s=time.perf_counter() - t, backend=mesh.backend,
+                   world=mesh.size())
+        with open(os.path.join(workdir, f"{leg}-rank{rank}.json"),
+                  "w") as fh:
+            json.dump(out, fh)
+    dist.sync_hosts("legs")
+    dist.shutdown()
+    return 0
+
+
+def example_rank(module: str, args) -> int:
+    """One rank of an example under the launcher: the example, then this
+    rank's K1 launches on a line of its own."""
+    import os
+    import runpy
+
+    sys.argv = [module, *args]
+    runpy.run_module(module, run_name="__main__", alter_sys=True)
+    from pvderx_torch.ops.window import rk4_window_batch
+
+    print(f"LAUNCHES rank={os.environ.get('RANK')} "
+          f"k1={rk4_window_batch.launches}", flush=True)
+    return 0
+
+
+def _launch_ranks(nproc, args, root, cpu, timeout):
+    """`pvderx_torch.dist.launch` as a subprocess: (rc, stdout, stderr)."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    cmd = [sys.executable, "-m", "pvderx_torch.dist.launch", "--nproc",
+           str(nproc), "--backend", "gloo", "--timeout", str(timeout)]
+    return subprocess.Popen(cmd + (["--cpu"] if cpu else []) + args, cwd=root,
+                            env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def _print_partial(card, w1, workdir, legs, nproc):
+    """What a failed run of ranks left: world 1's readings and the legs
+    that finished, printed as they are."""
+    import os
+
+    phase("dist_partial", card=card, world=1, **w1)
+    for leg in legs:
+        for r in range(nproc):
+            path = os.path.join(workdir, f"{leg}-rank{r}.json")
+            if os.path.exists(path):
+                with open(path) as fh:
+                    phase("dist_partial", card=card, leg=leg, rank=r,
+                          **json.load(fh))
+
+
+def _read_legs(workdir, legs, nproc):
+    import os
+
+    out = {}
+    for leg in legs:
+        out[leg] = []
+        for r in range(nproc):
+            with open(os.path.join(workdir, f"{leg}-rank{r}.json")) as fh:
+                out[leg].append(json.load(fh))
+    return out
+
+
+def dist_launches(out) -> dict:
+    """The dist phases' launches per kernel for the kernels line: world 1's
+    and every rank's, by leg."""
+    w1, r2, r4 = out["w1"], out["r2"], out["r4"]
+    per = lambda legs: [g["launches"] for g in legs]
+    return {
+        "k1": {"dist_env_w1": w1["env"]["launches"],
+               "dist_env_w2": per(r2["env"]),
+               "dist_ppo_w1": w1["ppo"]["launches"],
+               "dist_ppo_w2": per(r2["ppo"]),
+               "dist_dqn_w1": w1["dqn"]["launches"],
+               "dist_dqn_w2": per(r2["dqn"]),
+               "dist_sac_w1": w1["sac"]["launches"],
+               "dist_sac_w2": per(r2["sac"]),
+               "dist_tp_1x2": per(r2["tp12"]), "dist_tp_2x2": per(r4["tp22"]),
+               "dist_examples": out["examples"]},
+        "k2": {"dist_fleet_w1": w1["fleet"]["launches"],
+               "dist_fleet_w2": per(r2["fleet"]),
+               "dist_fleet_ppo_w2": per(r2["fleet_ppo"])},
+        "k3": {"dist_df32_w1": w1["df32"]["launches"],
+               "dist_df32_w2": per(r2["df32"])}}
+
+
+def run_dist(device, card, s=DIST, timeout=900):
+    """Phases 29-34 (the module docstring): world 1 in this process on the
+    card's backend (NCCL), world 2 and world 4 as gloo ranks sharing the
+    card (`pvderx_torch.dist.launch`), and the three training examples as
+    2 ranks each, started together. Returns the readings; raises on the
+    first failed check once every line has printed."""
+    import os
+    import tempfile
+
+    cuda = torch.device(device).type == "cuda"
+    root = os.path.dirname(os.path.abspath(__file__))
+    t_all = time.perf_counter()
+    fails = []
+
+    def check(ok, what):
+        if not ok:
+            fails.append(what)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as workdir:
+        with open(os.path.join(workdir, "sizes.json"), "w") as fh:
+            json.dump(dict(s, device=device), fh)
+        t = time.perf_counter()
+        w1 = _dist_world1(device, card, s, workdir,
+                          "nccl" if cuda else "gloo")
+        w1_s = time.perf_counter() - t
+        legs2 = ["env", "fleet", "df32", "ppo", "fleet_ppo", "dqn", "sac",
+                 "checkpoint", "tp12"]
+        legs4 = ["tp22", "ckpt_tp"]
+        t = time.perf_counter()
+        p2 = _launch_ranks(2, ["-m", "chip_smoke", "--dist-worker", workdir,
+                               *legs2], root, not cuda, timeout)
+        o2 = p2.communicate(timeout=timeout + 60)
+        w2_s = time.perf_counter() - t
+        if p2.returncode != 0:
+            _print_partial(card, w1, workdir, legs2, 2)
+            raise AssertionError(f"dist world 2 failed (rc {p2.returncode}):"
+                                 f"\n{o2[1][-3000:]}")
+        t = time.perf_counter()
+        p4 = _launch_ranks(4, ["-m", "chip_smoke", "--dist-worker", workdir,
+                               *legs4], root, not cuda, timeout)
+        o4 = p4.communicate(timeout=timeout + 60)
+        w4_s = time.perf_counter() - t
+        if p4.returncode != 0:
+            _print_partial(card, w1, workdir, legs4, 4)
+            raise AssertionError(f"dist world 4 failed (rc {p4.returncode}):"
+                                 f"\n{o4[1][-3000:]}")
+        r2, r4 = _read_legs(workdir, legs2, 2), _read_legs(workdir, legs4, 4)
+        t = time.perf_counter()
+        procs = [(name, want, _launch_ranks(
+            2, ["-m", "chip_smoke", "--example-rank",
+                f"pvderx_torch.examples.{name}", *args, "--n-sub",
+                str(s["n_sub"])] + ([] if cuda else ["--cpu"]), root,
+            not cuda, timeout)) for name, args, want in s["examples"]]
+        ex = {name: (want, p, p.communicate(timeout=timeout + 60))
+              for name, want, p in procs}
+        ex_s = time.perf_counter() - t
+
+    # -- dist_env -------------------------------------------------------------
+    for kind in ("env", "fleet", "df32"):
+        a = w1[kind]
+        phase("dist_env", card=card, backend="nccl" if cuda else "gloo",
+              world=1, **a)
+        check(a["bitwise_vs_unmeshed"] and a["reset_bitwise_vs_unmeshed"],
+              f"dist_env world 1 {kind}: not bitwise the un-meshed path")
+        check(not cuda or a["launches"] == a["steps"],
+              f"dist_env world 1 {kind}: launches {a['launches']}")
+        ranks = r2[kind]
+        rate = a["n_envs"] * a["steps"] / max(g["roll_s"] for g in ranks)
+        for g in ranks:
+            phase("dist_env", card=card, world_env_steps_per_s=rate,
+                  reset_tol=DIST_RESET_TOL, **g)
+            check(all(g["bitwise"].values()),
+                  f"dist_env world 2 {kind}: {g['bitwise']}")
+            check(not cuda or g["launches"] == g["steps"],
+                  f"dist_env world 2 {kind}: launches {g['launches']}")
+            check(g["reset_err"] <= DIST_RESET_TOL
+                  and g["reset_obs_err"] <= DIST_RESET_TOL,
+                  f"dist_env world 2 {kind}: reset {g['reset_err']}")
+        if kind == "env":
+            check(a["dones"] > 0, "dist_env: the horizon did not end")
+    # -- dist_ppo / dist_offpolicy --------------------------------------------
+    for name in ("ppo", "fleet_ppo", "dqn", "sac"):
+        ranks = r2[name]
+        label = "dist_ppo" if "ppo" in name else "dist_offpolicy"
+        n, rl = ranks[0]["n_envs"], ranks[0]["rollout_len"]
+        rate = n * rl * ranks[0]["timed_train_steps"] / max(
+            g["host_s"] for g in ranks)
+        if name in w1:
+            phase(label, card=card, backend="nccl" if cuda else "gloo",
+                  world=1, learner=name, **w1[name])
+        for g in ranks:
+            phase(label, card=card, world_env_steps_per_s=rate, **g)
+            check(all(np.isfinite(v) for v in g["metrics"].values()),
+                  f"{label} {name}: metrics {g['metrics']}")
+            check(not cuda or g["launches"] == g["env_steps"],
+                  f"{label} {name}: launches {g['launches']}")
+            if name != "fleet_ppo":
+                check(g["param_err"] <= DIST_PARAM_TOL
+                      and g["reward_mean_err"] <= DIST_REWARD_TOL
+                      and g["replicas_bitwise"],
+                      f"{label} {name}: world 2 vs 1 {g['param_err']}, "
+                      f"{g['reward_mean_err']}, {g['replicas_bitwise']}")
+    # -- dist_tp ----------------------------------------------------------------
+    for leg, ranks in (("tp12", r2["tp12"]), ("tp22", r4["tp22"])):
+        for g in ranks:
+            phase("dist_tp", card=card, **g)
+            check(g["loss_ok"] and g["param_excess_over_tol"] <= 0.0,
+                  f"dist_tp {leg}: loss {g['loss']} vs {g['loss_w1']}, "
+                  f"params {g['param_err']}")
+            check(g["dense0_local"][0] * 2 == s["hidden"][0]
+                  and g["mu0_local"] == g["dense0_local"],
+                  f"dist_tp {leg}: Dense_0 not split {g['dense0_local']}")
+    # -- dist_checkpoint --------------------------------------------------------
+    for g in r2["checkpoint"]:
+        phase("dist_checkpoint", card=card, case="world2_resume", **g)
+        check(not g["differences"] and g["loss"][0] == g["loss"][1],
+              f"dist_checkpoint world 2: {g['differences']}")
+    for g in r4["ckpt_tp"]:
+        phase("dist_checkpoint", card=card, case="dp_onto_tp_2x2", **g)
+        check(g["params_bitwise"] and g["loss"][0] == g["loss"][1]
+              and g["wrong_size_error"] is not None,
+              f"dist_checkpoint onto (2, 2): {g}")
+    # -- dist_examples -----------------------------------------------------------
+    launches = {}
+    for name, (want, p, (stdout, stderr)) in ex.items():
+        got = sorted(int(ln.split("k1=")[1]) for ln in stdout.splitlines()
+                     if ln.startswith("LAUNCHES "))
+        launches[name] = got
+        phase("dist_examples", card=card, example=name, rc=p.returncode,
+              k1_launches_per_rank=got, want=want)
+        check(p.returncode == 0 and len(got) == 2,
+              f"dist_examples {name}: rc {p.returncode}\n{stderr[-2000:]}")
+        check(not cuda or got == [want, want],
+              f"dist_examples {name}: launches {got}, want {want}")
+    seconds = dict(world1_s=w1_s, world2_s=w2_s, world4_s=w4_s,
+                   examples_s=ex_s, total_s=time.perf_counter() - t_all)
+    phase("dist", card=card, **seconds)
+    if fails:
+        raise AssertionError("dist: " + "; ".join(fails))
+    return dict(w1=w1, r2=r2, r4=r4, examples=launches, seconds=seconds)
+
+
 def kernel_name(mangled: str) -> str:
     """`window_kernel<3>` and the like for a window kernel's mangled or
     demangled name; any other name as it is."""
@@ -2007,6 +2717,8 @@ def main() -> int:
     ckpt_out = run_diag_checkpoint(device, card)
     run_grad(device, card)
     examples_out = run_examples(device, card)
+    dist_out = run_dist(device, card)
+    dl = dist_launches(dist_out)
 
     # the bounds at the main path's shapes (diag.roofline), the lane-issue
     # floor at the card's max SM clock
@@ -2053,7 +2765,7 @@ def main() -> int:
             "diag_checkpoint": {k: v["launches"]
                                 for k, v in ckpt_out.items()},
             "grad_guard": debug_out["grad_guard"]["k1"]["launches"],
-            "examples": ex("k1")},
+            "examples": ex("k1"), **dl["k1"]},
     }, {
         "name": "rk4_fleet_window",
         "route": "cuda",
@@ -2076,7 +2788,7 @@ def main() -> int:
             "fleet_implicit": fleet_implicit_out["float32_k2_launches"],
             "diag_profiler_trace": prof_out["fleet"]["launches"],
             "grad_guard": debug_out["grad_guard"]["k2"]["launches"],
-            "examples": ex("k2")},
+            "examples": ex("k2"), **dl["k2"]},
     }, {
         "name": "rk4_window_df",
         "route": "cuda",
@@ -2095,7 +2807,8 @@ def main() -> int:
         "library_ms": None,
         "slice_launches": {
             "diag_profiler_trace": prof_out["df32"]["launches"],
-            "grad_guard": debug_out["grad_guard"]["k3"]["launches"]},
+            "grad_guard": debug_out["grad_guard"]["k3"]["launches"],
+            **dl["k3"]},
     }]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -2105,4 +2818,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dist-worker"]:
+        sys.exit(dist_worker(sys.argv[2], sys.argv[3:]))
+    if sys.argv[1:2] == ["--example-rank"]:
+        sys.exit(example_rank(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

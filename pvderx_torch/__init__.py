@@ -51,8 +51,8 @@ _LAZY = {
 }
 
 # submodules resolvable as attributes (`pvderx_torch.env.make_env_config`)
-_LAZY_MODULES = ("env", "sim", "scenario", "ode", "oracle", "learn", "diag",
-                 "utils", "config", "ops", "convert")
+_LAZY_MODULES = ("env", "sim", "scenario", "ode", "oracle", "learn", "dist",
+                 "diag", "utils", "config", "ops", "convert")
 
 
 def __getattr__(name):

@@ -23,10 +23,12 @@ import torch
 
 from pvderx_torch._struct import replace, struct, tree_map
 from pvderx_torch.checks import check_parameters, check_scenario
+from pvderx_torch.dist.mesh import draw_rows
 from pvderx_torch.ode import newton_solve
 from pvderx_torch.ode.implicit import WINDOWS as IMPLICIT_WINDOWS
 from pvderx_torch.ops.window import (
-    P_FIELDS, U_FIELDS, pack_struct, rk4_window_batch, unpack_struct)
+    P_FIELDS, U_FIELDS, pack_struct, pad_envs, rk4_window_batch,
+    unpack_struct)
 from pvderx_torch.params import DERParams, Exog, make_params
 from pvderx_torch.physics import rhs_core
 from pvderx_torch.physics.xp import TorchXP, like
@@ -205,9 +207,11 @@ def make_env_config(
     return cfg
 
 
-def _rand(cfg: EnvConfig, shape, generator):
-    return torch.rand(shape, generator=generator, dtype=cfg.dtype,
-                      device=cfg.device)
+def _rand(cfg: EnvConfig, shape, generator, mesh=None):
+    """Uniforms on [0, 1) of ``shape`` (env axis leading); under a mesh,
+    this rank's rows of the global draw (`dist.mesh.draw_rows`)."""
+    return draw_rows(mesh, lambda s: torch.rand(
+        s, generator=generator, dtype=cfg.dtype, device=cfg.device), shape)
 
 
 # ---------------------------------------------------------------------------
@@ -350,17 +354,38 @@ def _reward(cfg: EnvConfig, vdc, vdc_ref, q_pcc, q_ref, v_mag, trip_now):
 # ---------------------------------------------------------------------------
 # reset / step
 # ---------------------------------------------------------------------------
-def reset(cfg: EnvConfig, n: int, generator: torch.Generator):
+def padded_draws(n: int, *draws):
+    """The reset's draws ([n, ...] each) padded on the CPU to a multiple of
+    `ops.window.CPU_LANES` envs, and the padded count: the whole reset then
+    runs every env through the CPU's vector loops, so an env's steady state
+    does not depend on the batch size (see `ops.window`)."""
+    out = pad_envs(n, *((d, 0) for d in draws))
+    return out, out[0].shape[0]
+
+
+def unpad(state, obs, n: int, n_pad: int):
+    """The first ``n`` envs of a reset made on ``n_pad`` (`padded_draws`):
+    (state, obs)."""
+    if n == n_pad:
+        return state, obs
+    return (tree_map(lambda x: x[:n].clone() if x.dim() else x, state),
+            obs[:n].clone())
+
+
+def reset(cfg: EnvConfig, n: int, generator: torch.Generator, mesh=None):
     """Full episode reset of n envs: sample scenarios, Newton steady-state
-    init (SPEC §7/§9). ``generator`` lives on ``cfg.device``."""
+    init (SPEC §7/§9). ``generator`` lives on ``cfg.device``. Under a
+    ``mesh`` the n envs are this rank's rows of the global batch, their
+    scenarios drawn as the one-rank reset draws them."""
     dtype, dev = cfg.dtype, cfg.device
     sc = cfg.scen
-    base = _rand(cfg, (n, 2), generator)
+    n_out = n
+    (base, jit, ev), n = padded_draws(n, *(
+        _rand(cfg, (n, k), generator, mesh) for k in (2, 2, N_EVENT_DRAWS)))
     s0 = sc.s0_lo + (sc.s0_hi - sc.s0_lo) * base[:, 0]
     tc0 = sc.tc_lo + (sc.tc_hi - sc.tc_lo) * base[:, 1]
-    der = _jitter_params(cfg, n, 2.0 * _rand(cfg, (n, 2), generator) - 1.0)
-    sched = _sample_events(cfg, s0, tc0,
-                           _rand(cfg, (n, N_EVENT_DRAWS), generator))
+    der = _jitter_params(cfg, n, 2.0 * jit - 1.0)
+    sched = _sample_events(cfg, s0, tc0, ev)
 
     zeros = torch.zeros(n, dtype=dtype, device=dev)
     ones = torch.ones(n, dtype=dtype, device=dev)
@@ -377,12 +402,14 @@ def reset(cfg: EnvConfig, n: int, generator: torch.Generator):
         obs0=torch.zeros(n, OBS_DIM, dtype=dtype, device=dev), ppv0=g.p_pv,
     )
     obs = _obs(cfg, st, g, exog0, zeros)
-    return replace(st, obs0=obs), obs
+    return unpad(replace(st, obs0=obs), obs, n_out, n)
 
 
-def event_draws(cfg: EnvConfig, n: int, generator: torch.Generator):
-    """The uniforms one soft reset of n envs consumes."""
-    return _rand(cfg, (n, N_EVENT_DRAWS), generator)
+def event_draws(cfg: EnvConfig, n: int, generator: torch.Generator,
+                mesh=None):
+    """The uniforms one soft reset of n envs consumes (this rank's rows of
+    the global draw under a ``mesh``)."""
+    return _rand(cfg, (n, N_EVENT_DRAWS), generator, mesh)
 
 
 def _soft_reset(cfg: EnvConfig, st: EnvState, uv):

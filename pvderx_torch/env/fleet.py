@@ -34,6 +34,7 @@ from functools import partial
 import torch
 
 from pvderx_torch._struct import replace, struct, tree_map
+from pvderx_torch.dist.mesh import local_count
 from pvderx_torch.env import core
 from pvderx_torch.env.core import OBS_DIM, EnvConfig
 from pvderx_torch.env.vector import autoreset, rollout_with
@@ -163,23 +164,25 @@ def _obs(fc: FleetConfig, st: FleetState, g: rhs_core.Algebra, fu: Exog,
     return obs
 
 
-def reset(fc: FleetConfig, n: int, generator: torch.Generator):
+def reset(fc: FleetConfig, n: int, generator: torch.Generator, mesh=None):
     """Full episode reset of n fleet envs: scenario draws, per-unit shading,
-    coupled Newton steady-state init over M·n_s unknowns per env."""
+    coupled Newton steady-state init over M·n_s unknowns per env. Under a
+    ``mesh`` the n envs are this rank's rows of the global batch."""
     cfg, m = fc.base, fc.m
     dtype, dev = cfg.dtype, cfg.device
     sc = cfg.scen
-    base = core._rand(cfg, (n, 2), generator)
+    rand = partial(core._rand, cfg, generator=generator, mesh=mesh)
+    n_out = n
+    (base, shade, jit, ev), n = core.padded_draws(n, *(
+        rand((n, k)) for k in (2, m, 2, core.N_EVENT_DRAWS)))
     s0 = sc.s0_lo + (sc.s0_hi - sc.s0_lo) * base[:, 0]
     tc0 = sc.tc_lo + (sc.tc_hi - sc.tc_lo) * base[:, 1]
     # shading only, scale in (1 - jitter, 1]: a scale > 1 can push a unit
     # past its current-limited capability, where no steady state exists
-    s_scale = 1.0 - sc.fleet_s_jitter * core._rand(cfg, (n, m), generator)
-    der1 = core._jitter_params(cfg, n,
-                               2.0 * core._rand(cfg, (n, 2), generator) - 1.0)
+    s_scale = 1.0 - sc.fleet_s_jitter * shade
+    der1 = core._jitter_params(cfg, n, 2.0 * jit - 1.0)
     der = fleet.fleetify(der1, m)
-    sched = core._sample_events(
-        cfg, s0, tc0, core._rand(cfg, (n, core.N_EVENT_DRAWS), generator))
+    sched = core._sample_events(cfg, s0, tc0, ev)
 
     ones = torch.ones(n, m, dtype=dtype, device=dev)
     zeros = torch.zeros(n, m, dtype=dtype, device=dev)
@@ -205,7 +208,7 @@ def reset(fc: FleetConfig, n: int, generator: torch.Generator):
         ppv0=g.p_pv,
     )
     obs = _obs(fc, st, g, fu, t0)
-    return replace(st, obs0=obs), obs
+    return core.unpad(replace(st, obs0=obs), obs, n_out, n)
 
 
 def _soft_reset(fc: FleetConfig, st: FleetState, uv):
@@ -311,40 +314,46 @@ def step(fc: FleetConfig, st: FleetState, action, p_pack=None):
 
 
 def _step_batch_impl(fc: FleetConfig, state, actions, generator,
-                     p_pack=None):
+                     p_pack=None, mesh=None):
     """`step` of every env, then the autoreset select on done."""
     st1, obs, reward, done, info = step(fc, state, actions, p_pack)
-    uv = core.event_draws(fc.base, state.y.shape[0], generator)
+    uv = core.event_draws(fc.base, state.y.shape[0], generator, mesh)
     st2, obs2 = autoreset(done, _soft_reset(fc, st1, uv), (st1, obs))
     return st2, obs2, reward, done, info
 
 
-def make_fleet_batch_fns(fc: FleetConfig):
+def make_fleet_batch_fns(fc: FleetConfig, mesh=None):
     """Returns (reset_batch(n, generator) -> (state, obs),
                 step_batch(state, actions, generator)
                     -> (state, obs, reward, done, info)).
 
     actions: [N] integers (aggregate) or [N, M] (per-unit). step_batch
     auto-resets done envs, drawing their new events from ``generator`` (on
-    the config's device); `step` is the step without autoreset."""
+    the config's device); `step` is the step without autoreset.
+
+    ``mesh`` (`pvderx_torch.dist`): ``n`` is the global env count and the
+    state this rank's rows of it (N/W envs of M units each; the unit axis
+    rides along unsharded); each step launches K2 on those rows. A global
+    N that the env axis does not divide raises ``ValueError``."""
 
     def reset_batch(n: int, generator: torch.Generator):
-        return reset(fc, n, generator)
+        return reset(fc, local_count(mesh, n), generator, mesh)
 
     def step_batch(state, actions, generator: torch.Generator):
-        return _step_batch_impl(fc, state, actions, generator)
+        return _step_batch_impl(fc, state, actions, generator, mesh=mesh)
 
     return reset_batch, step_batch
 
 
 def fleet_rollout(fc: FleetConfig, state, obs, policy_fn, n_steps: int,
-                  generator: torch.Generator):
+                  generator: torch.Generator, mesh=None):
     """Run a policy for n_steps of a batched fleet env with auto-reset.
 
     policy_fn(obs, generator) -> actions. Returns (state, obs, rewards
-    [T, N], dones [T, N])."""
-    return rollout_with(_step_batch_impl, fc, state, obs, policy_fn, n_steps,
-                        generator, pack_struct(state.der, P_FIELDS))
+    [T, N], dones [T, N]); under a ``mesh``, of this rank's envs."""
+    return rollout_with(partial(_step_batch_impl, mesh=mesh), fc, state, obs,
+                        policy_fn, n_steps, generator,
+                        pack_struct(state.der, P_FIELDS))
 
 
 __all__ = [

@@ -14,9 +14,14 @@ copies its outputs to the host. The ids `pvderx_torch/PVDER-v0` and
 gymnasium is installed. Without gymnasium the classes keep the same
 reset/step surface, without spaces.
 
-The reference's ``mesh``, ``window`` and ``block`` arguments are left out:
-the port has no multi-device env path and no window knob (rk4 runs the
-CUDA window kernel on the card, the implicit schemes `ode.implicit`).
+`PVDERVectorEnv` and `PVDERFleetEnv` take ``mesh`` (`pvderx_torch.dist`):
+the adapter on a rank then steps that rank's rows of the global batch
+(``num_envs / W`` vector envs, or one fleet episode of a global batch of W)
+and returns its local observations; episodes are drawn at the global shape
+from the same seed on every rank, so the W ranks together step what one
+adapter of the global size steps. The reference's ``window`` and ``block``
+arguments are left out: the port has no window knob (rk4 runs the CUDA
+window kernel on the card, the implicit schemes `ode.implicit`).
 """
 from __future__ import annotations
 
@@ -32,6 +37,7 @@ except ImportError:
     spaces = None
     _HAS_GYM = False
 
+from pvderx_torch.dist.mesh import local_count
 from pvderx_torch.env import core, fleet, vector
 from pvderx_torch.ops.window import P_FIELDS, pack_struct
 
@@ -149,14 +155,20 @@ class PVDERVectorEnv(_VBASE):
     Autoreset is SAME_STEP: when an episode ends, the returned observation
     is already the reset one, and ``infos["final_obs"]`` carries the
     pre-reset observation with ``infos["_final_obs"]`` marking the rows
-    (Gymnasium 1.x `AutoresetMode.SAME_STEP`)."""
+    (Gymnasium 1.x `AutoresetMode.SAME_STEP`).
+
+    ``mesh``: ``num_envs`` is the global count and this adapter steps the
+    rank's ``num_envs / W`` of them (its ``num_envs``); a count the env
+    axis does not divide raises ``ValueError``."""
 
     metadata = {"autoreset_mode": (gym.vector.AutoresetMode.SAME_STEP
                                    if _HAS_GYM else None)}
 
     def __init__(self, num_envs: int, preset: str = "10", seed: int = 0,
-                 cfg: core.EnvConfig | None = None, device="cuda", **cfg_kw):
-        self.num_envs = int(num_envs)
+                 cfg: core.EnvConfig | None = None, device="cuda", mesh=None,
+                 **cfg_kw):
+        self.mesh = mesh
+        self.num_envs = local_count(mesh, int(num_envs))
         self.cfg = cfg if cfg is not None else core.make_env_config(
             preset, device=device, **cfg_kw)
         self.render_mode = None
@@ -177,7 +189,8 @@ class PVDERVectorEnv(_VBASE):
             super().reset(seed=seed, options=options)
         if seed is not None:
             self._gen.manual_seed(int(seed))
-        self._state, obs = core.reset(self.cfg, self.num_envs, self._gen)
+        self._state, obs = core.reset(self.cfg, self.num_envs, self._gen,
+                                      self.mesh)
         # per-env params never change across soft resets: pack them once
         self._p_pack = pack_struct(self._state.der, P_FIELDS)
         return (obs.cpu().numpy().astype(np.float32),
@@ -187,8 +200,8 @@ class PVDERVectorEnv(_VBASE):
         cfg, n = self.cfg, self.num_envs
         st1, obs_f, rew, done, info = core.step(
             cfg, self._state, _actions(cfg, actions, (n,)), self._p_pack)
-        restarted = core._soft_reset(cfg, st1, core.event_draws(cfg, n,
-                                                                self._gen))
+        restarted = core._soft_reset(
+            cfg, st1, core.event_draws(cfg, n, self._gen, self.mesh))
         self._state, obs = vector.autoreset(done, restarted, (st1, obs_f))
         info_np = _host(info)
         terminated = info_np.pop("terminated")
@@ -211,13 +224,18 @@ class PVDERFleetEnv(_BASE):
     action for the fleet, Box(13) aggregate observation. Per-unit mode
     (``per_unit=True``): MultiDiscrete([5]*M) actions, one per inverter, and
     Box(13 + 4M) observations with the per-unit [Vdc | P | Q | conn]
-    block."""
+    block.
+
+    ``mesh``: each rank's adapter runs its own episode, row ``r`` of a
+    global batch of W fleet episodes (one per env-axis rank), drawn at
+    the global shape."""
 
     metadata = {"render_modes": ["ansi"]}
 
     def __init__(self, preset: str = "10", m: int = 16, seed: int = 0,
                  render_mode=None, fc: fleet.FleetConfig | None = None,
-                 per_unit: bool = False, device="cuda", **cfg_kw):
+                 per_unit: bool = False, device="cuda", mesh=None, **cfg_kw):
+        self.mesh = mesh
         self.fc = fc if fc is not None else fleet.make_fleet_config(
             preset, m=m, per_unit=per_unit, device=device, **cfg_kw)
         if self.fc.base.continuous or self.fc.base.anomaly_detect:
@@ -241,7 +259,7 @@ class PVDERFleetEnv(_BASE):
             super().reset(seed=seed, options=options)
         if seed is not None:
             self._gen.manual_seed(int(seed))
-        self._state, obs = fleet.reset(self.fc, 1, self._gen)
+        self._state, obs = fleet.reset(self.fc, 1, self._gen, self.mesh)
         self._last = None
         return (obs[0].cpu().numpy().astype(np.float32),
                 {"init_res": float(self._state.init_res[0])})

@@ -11,6 +11,13 @@ multiple of ``target_every``, after the step's updates.
 Replay row layout: ``[obs (D) | act (as a float, exact for small ints) |
 rew | done | nobs (D)]``, in the compute dtype. Every draw comes from the
 runner's ``torch.Generator``.
+
+Under a ``mesh`` (`pvderx_torch.dist`) each rank steps and stores its own
+envs (a rank-local replay, `learn.replay`), draws at the global shape
+(epsilon-greedy draws, the global sample's slots), computes the loss terms
+of the samples it owns over the global batch size, and all-reduces the
+gradients before Adam: the net, its target and the optimizer stay
+replicated, bit for bit.
 """
 from __future__ import annotations
 
@@ -21,10 +28,14 @@ from typing import Any, NamedTuple
 
 import torch
 
+from pvderx_torch.dist.mesh import ENV_AXIS, draw_rows
+from pvderx_torch.dist.sharding import replicate
+from pvderx_torch.dist.tp import shard_nets_tp
 from pvderx_torch.learn.env_api import make_env_api, pack_params
 from pvderx_torch.learn.nets import QNetwork
 from pvderx_torch.learn.replay import (
-    Replay, insert_rows, make_replay, sample_rows)
+    Replay, check_shardable, insert_rows, make_replay, sample_owned,
+    sample_rows)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,7 +84,8 @@ def huber_loss(pred, target, delta: float = 1.0):
     return 0.5 * quadratic ** 2 + delta * (abs_err - quadratic)
 
 
-def make_dqn(env_cfg, dqn: DQNConfig, hidden=(128, 128), dtype=torch.float32):
+def make_dqn(env_cfg, dqn: DQNConfig, hidden=(128, 128), dtype=torch.float32,
+             mesh=None):
     """Build (init_runner(n_envs, generator), train_step(runner), make_net).
 
     env_cfg must be discrete: a single-DER `EnvConfig` (the anomaly variant
@@ -81,8 +93,11 @@ def make_dqn(env_cfg, dqn: DQNConfig, hidden=(128, 128), dtype=torch.float32):
     `FleetConfig`. ``dtype`` is the compute dtype; parameters are float32.
     ``train_step(runner) -> (runner, metrics)`` is
     ``train_step.update(*train_step.collect(runner))``, as in `make_ppo`.
+    ``mesh``: see the module docstring; `init_runner` takes the global env
+    count and, over W > 1 env ranks, needs a capacity that
+    ``rollout_len · n_envs`` divides.
     """
-    api = make_env_api(env_cfg)
+    api = make_env_api(env_cfg, mesh)
     if api.n_units > 1:
         raise ValueError(
             "per-unit fleet control (FleetConfig(per_unit=True)) is "
@@ -94,13 +109,19 @@ def make_dqn(env_cfg, dqn: DQNConfig, hidden=(128, 128), dtype=torch.float32):
     make_net = functools.partial(QNetwork, d, n_actions, hidden, dtype)
 
     def init_runner(n_envs: int, generator: torch.Generator) -> DQNRunner:
+        check_shardable(dqn.capacity, dqn.rollout_len * n_envs, mesh)
+        if mesh is not None:
+            replicate(generator, mesh)
         net = make_net(generator=generator)
         env_state, obs = api.reset_batch(n_envs, generator)
         net_tgt = copy.deepcopy(net).requires_grad_(False)
+        shard_nets_tp(mesh, net, net_tgt)
+        cap = dqn.capacity if mesh is None else (
+            dqn.capacity // mesh.size(ENV_AXIS))
         return DQNRunner(
             net=net, net_tgt=net_tgt,
             opt=torch.optim.Adam(net.parameters(), lr=dqn.lr, eps=1e-8),
-            replay=make_replay(dqn.capacity, 2 * d + 3, dtype, api.device),
+            replay=make_replay(cap, 2 * d + 3, dtype, api.device, n_envs),
             env_state=env_state, obs=obs, p_pack=pack_params(env_state),
             generator=generator)
 
@@ -117,10 +138,12 @@ def make_dqn(env_cfg, dqn: DQNConfig, hidden=(128, 128), dtype=torch.float32):
         rows, rews = [], []
         for _ in range(dqn.rollout_len):
             greedy = torch.argmax(runner.net(ob), dim=-1)
-            rand = torch.randint(0, n_actions, greedy.shape, generator=gen,
-                                 device=greedy.device)
-            explore = torch.rand(greedy.shape, generator=gen, dtype=dtype,
-                                 device=greedy.device) < eps
+            dev = greedy.device
+            rand = draw_rows(mesh, lambda s: torch.randint(
+                0, n_actions, s, generator=gen, device=dev), greedy.shape)
+            explore = draw_rows(mesh, lambda s: torch.rand(
+                s, generator=gen, dtype=dtype, device=dev),
+                greedy.shape) < eps
             a = torch.where(explore, rand, greedy)
             st, ob2, r, done, _ = api.step(st, a, gen, runner.p_pack)
             r = r.to(dtype)
@@ -138,7 +161,13 @@ def make_dqn(env_cfg, dqn: DQNConfig, hidden=(128, 128), dtype=torch.float32):
 
     def _update_once(runner: DQNRunner, rp: Replay):
         net, net_tgt = runner.net, runner.net_tgt
-        b = _unpack(sample_rows(rp, runner.generator, dqn.batch_size))
+        if mesh is None:
+            b = _unpack(sample_rows(rp, runner.generator, dqn.batch_size))
+            mean = torch.mean
+        else:
+            rows, _ = sample_owned(rp, runner.generator, dqn.batch_size, mesh)
+            b = _unpack(rows)
+            mean = lambda x: x.sum() / dqn.batch_size
         with torch.no_grad():
             q_next_tgt = net_tgt(b.nobs)
             a_next = torch.argmax(net(b.nobs) if dqn.double else q_next_tgt,
@@ -146,12 +175,16 @@ def make_dqn(env_cfg, dqn: DQNConfig, hidden=(128, 128), dtype=torch.float32):
             q_next = q_next_tgt.gather(-1, a_next[:, None])[:, 0]
             target = b.rew + dqn.gamma * (1.0 - b.done) * q_next
         q_a = net(b.obs).gather(-1, b.act[:, None])[:, 0]
-        loss = huber_loss(q_a, target).mean()
+        loss = mean(huber_loss(q_a, target))
         params = list(net.parameters())
-        for p, g in zip(params, torch.autograd.grad(loss, params)):
+        grads = torch.autograd.grad(loss, params)
+        stats = torch.stack([loss, mean(q_a)]).detach()
+        if mesh is not None:
+            *grads, stats = mesh.all_reduce_many([*grads, stats])
+        for p, g in zip(params, grads):
             p.grad = g
         runner.opt.step()
-        return torch.stack([loss, q_a.mean()]).detach()
+        return stats
 
     def update(runner: DQNRunner, rollout):
         """The replay insert, ``n_updates`` TD steps and the target sync."""
@@ -162,8 +195,13 @@ def make_dqn(env_cfg, dqn: DQNConfig, hidden=(128, 128), dtype=torch.float32):
         update_i = runner.update_i + 1
         if update_i % dqn.target_every == 0:
             runner.net_tgt.load_state_dict(runner.net.state_dict())
+        r_mean, size = rews.mean(), rp.size
+        if mesh is not None:
+            w = mesh.size(ENV_AXIS)
+            r_mean = mesh.all_reduce(rews.sum()) / (rews.numel() * w)
+            size = size * w
         metrics = {"loss": loss, "q_mean": q_mean, "epsilon": eps,
-                   "reward_mean": rews.mean(), "buffer_size": rp.size}
+                   "reward_mean": r_mean, "buffer_size": size}
         return dataclasses.replace(runner, replay=rp,
                                    update_i=update_i), metrics
 

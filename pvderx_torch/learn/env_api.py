@@ -11,10 +11,15 @@ and observation spaces. This module gives them both backends:
 - the shared-feeder fleet (`pvderx_torch.env.fleet`), BASELINE config 5;
   its window runs through K2 (`ops.window.rk4_fleet_window_batch`).
 
+Under a ``mesh`` (`pvderx_torch.dist`), ``reset_batch(n, ...)`` takes the
+global env count and both functions work on this rank's rows of the batch:
+each rank launches the window kernel on its own N/W envs, and every random
+draw is made at the global shape (`dist.mesh.draw_rows`).
+
 The reference's ``unalias`` is not carried over: it breaks the aliases that
 reset leaves between cached buffers, which only XLA's buffer donation
 needs. A torch step never writes into its inputs, so there is nothing to
-break. Nor is its ``mesh``: one process drives one card here.
+break.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from pvderx_torch.dist.mesh import local_count
 from pvderx_torch.env import core, fleet, vector
 from pvderx_torch.ops.window import P_FIELDS, pack_struct
 
@@ -55,10 +61,11 @@ def pack_params(state) -> torch.Tensor:
     return pack_struct(state.der, P_FIELDS)
 
 
-def make_env_api(env_cfg) -> EnvAPI:
+def make_env_api(env_cfg, mesh=None) -> EnvAPI:
     """The learner-facing API of an `EnvConfig` or a `FleetConfig`. The
     device and dtype are the config's (``device="cpu"`` in
-    `make_env_config` for the plain windows)."""
+    `make_env_config` for the plain windows). ``mesh``: see the module
+    docstring."""
     if isinstance(env_cfg, fleet.FleetConfig):
         base = env_cfg.base
         if base.anomaly_detect or base.continuous:
@@ -69,11 +76,12 @@ def make_env_api(env_cfg) -> EnvAPI:
                 "the FleetConfig base)")
 
         def reset_batch(n: int, generator: torch.Generator):
-            return fleet.reset(env_cfg, n, generator)
+            return fleet.reset(env_cfg, local_count(mesh, n), generator,
+                               mesh)
 
         def step(state, actions, generator, p_pack=None):
             return fleet._step_batch_impl(env_cfg, state, actions, generator,
-                                          p_pack)
+                                          p_pack, mesh)
 
         return EnvAPI(reset_batch=reset_batch, step=step,
                       n_actions=core.N_ACTIONS, act_dim=0,
@@ -89,11 +97,11 @@ def make_env_api(env_cfg) -> EnvAPI:
         n_actions, act_dim = core.N_ACTIONS, 0
 
     def reset_batch(n: int, generator: torch.Generator):
-        return core.reset(env_cfg, n, generator)
+        return core.reset(env_cfg, local_count(mesh, n), generator, mesh)
 
     def step(state, actions, generator, p_pack=None):
         return vector._step_batch_impl(env_cfg, state, actions, generator,
-                                       p_pack)
+                                       p_pack, mesh)
 
     return EnvAPI(reset_batch=reset_batch, step=step, n_actions=n_actions,
                   act_dim=act_dim, obs_dim=core.OBS_DIM, n_units=1,

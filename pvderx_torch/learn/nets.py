@@ -17,6 +17,12 @@ The port of `pvderx.learn.nets`: the same four MLPs with the same init.
 A torch ``Linear.weight`` is ``[out, in]``; a Flax kernel is ``[in, out]``.
 Every random draw of the init takes the caller's ``torch.Generator``, and
 the parameters are made on that generator's device.
+
+Tensor parallelism: `pvderx_torch.dist.tp.shard_params_tp` shards a net's
+layers in place and gives each `Linear` a ``tp`` plan; a layer with one
+runs its column- or row-parallel forward (`dist.tp.TPPlan.linear`). Each
+net names, by `layer_inputs`, the layer that feeds each of its layers, from
+which the plan knows whether a layer's input arrives sharded.
 """
 from __future__ import annotations
 
@@ -57,8 +63,11 @@ def dense(in_f: int, out_f: int, gain: float,
 
 
 def _apply(lin: nn.Linear, h: torch.Tensor, dtype) -> torch.Tensor:
-    """``h @ W.T + b`` computed in ``dtype`` (the float32 parameters cast)."""
-    return F.linear(h, lin.weight.to(dtype), lin.bias.to(dtype))
+    """``h @ W.T + b`` computed in ``dtype`` (the float32 parameters cast),
+    through the layer's tensor-parallel plan when it has one."""
+    w, b = lin.weight.to(dtype), lin.bias.to(dtype)
+    tp = getattr(lin, "tp", None)
+    return F.linear(h, w, b) if tp is None else tp.linear(h, w, b)
 
 
 def _trunk(in_f, hidden, generator) -> nn.ModuleList:
@@ -85,6 +94,13 @@ class _MLP(nn.Module):
 
     def head(self, lin: nn.Linear, h: torch.Tensor) -> torch.Tensor:
         return _apply(lin, h, self.dtype)
+
+    def layer_inputs(self) -> list:
+        """For each layer of `layers`, the index of the layer that feeds it
+        (-1: the net's input): the trunk is a chain, every head reads the
+        trunk's last layer."""
+        k = len(self.trunk)
+        return [i - 1 for i in range(k)] + [k - 1] * (len(self.layers()) - k)
 
 
 class ActorCritic(_MLP):
@@ -160,6 +176,12 @@ class DoubleCritic(nn.Module):
 
     def layers(self):
         return [*self.q1, *self.q2]
+
+    def layer_inputs(self) -> list:
+        """Each twin a chain of its own (see `_MLP.layer_inputs`)."""
+        k = len(self.q1)
+        return [i - 1 for i in range(k)] + [k + i - 1 if i else -1
+                                            for i in range(k)]
 
     def _q(self, twin: nn.ModuleList, x):
         h = x

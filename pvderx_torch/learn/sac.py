@@ -17,6 +17,14 @@ compute dtype, as the reference keeps it). ``softplus`` is written as
 ``logaddexp(x, 0)``, as `jax.nn.softplus` is: `F.softplus` returns x for
 x > 20. Replay row layout: ``[obs (D) | act (A) | rew | done | nobs (D)]``.
 Every draw comes from the runner's ``torch.Generator``.
+
+Under a ``mesh`` (`pvderx_torch.dist`), as in `learn.dqn`: each rank steps
+and stores its own envs, draws every noise at the global shape (keeping
+its envs' rows, or its samples' rows of the global batch), takes each loss
+as a local sum over the global batch size, and all-reduces each of the
+three gradients before its Adam step (the critic's with the critic loss,
+the actor's with the actor loss and the entropy); the nets, the target
+critics, ``log_alpha`` and the three optimizers stay replicated.
 """
 from __future__ import annotations
 
@@ -28,11 +36,15 @@ from typing import Any, NamedTuple
 
 import torch
 
+from pvderx_torch.dist.mesh import ENV_AXIS, draw_rows
+from pvderx_torch.dist.sharding import replicate
+from pvderx_torch.dist.tp import shard_nets_tp
 from pvderx_torch.env.core import ACT_DIM_CONT
 from pvderx_torch.learn.env_api import make_env_api, pack_params
 from pvderx_torch.learn.nets import DoubleCritic, TanhGaussianActor
 from pvderx_torch.learn.replay import (
-    Replay, insert_rows, make_replay, sample_rows)
+    Replay, check_shardable, insert_rows, make_replay, sample_owned,
+    sample_rows)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,10 +94,14 @@ def _noise(like: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
                        device=like.device)
 
 
-def _squash(mu, log_std, generator):
-    """A tanh-squashed Gaussian action and its log-prob."""
+def _squash(mu, log_std, generator, pick=None):
+    """A tanh-squashed Gaussian action and its log-prob. ``pick(draw)``,
+    under a mesh, returns this rank's rows of a global draw
+    (``draw(shape)``) in place of `_noise`."""
     std = torch.exp(log_std)
-    eps = _noise(mu, generator)
+    eps = _noise(mu, generator) if pick is None else pick(
+        lambda s: torch.randn(s, generator=generator, dtype=mu.dtype,
+                              device=mu.device))
     pre = mu + std * eps
     act = torch.tanh(pre)
     logp = (-0.5 * (eps ** 2) - log_std - 0.5 * math.log(2 * math.pi)).sum(-1)
@@ -94,20 +110,29 @@ def _squash(mu, log_std, generator):
     return act, logp
 
 
-def _adam_step(opt, params, loss):
-    """One Adam step on the gradient of ``loss`` for ``params`` alone."""
-    for p, g in zip(params, torch.autograd.grad(loss, params)):
+def _adam_step(opt, params, loss, mesh=None, stats=()):
+    """One Adam step on the gradient of ``loss`` for ``params`` alone;
+    under a mesh the gradient is all-reduced first, in one collective with
+    ``stats`` (returned all-reduced)."""
+    grads = torch.autograd.grad(loss, params)
+    if mesh is not None:
+        out = mesh.all_reduce_many([*grads, *stats])
+        grads, stats = out[:len(grads)], tuple(out[len(grads):])
+    for p, g in zip(params, grads):
         p.grad = g
     opt.step()
+    return stats
 
 
-def make_sac(env_cfg, sac: SACConfig, hidden=(128, 128), dtype=torch.float32):
+def make_sac(env_cfg, sac: SACConfig, hidden=(128, 128), dtype=torch.float32,
+             mesh=None):
     """Build (init_runner(n_envs, generator), train_step(runner),
     (make_actor, make_critic)). env_cfg must have continuous=True (the
     single-DER env; the fleet's action space is discrete).
     ``train_step(runner) -> (runner, metrics)`` is
-    ``train_step.update(*train_step.collect(runner))``, as in `make_ppo`."""
-    api = make_env_api(env_cfg)
+    ``train_step.update(*train_step.collect(runner))``, as in `make_ppo`.
+    ``mesh``: see the module docstring and `make_dqn`'s."""
+    api = make_env_api(env_cfg, mesh)
     if api.n_units > 1:
         raise ValueError(
             "per-unit fleet control (FleetConfig(per_unit=True)) is "
@@ -121,18 +146,24 @@ def make_sac(env_cfg, sac: SACConfig, hidden=(128, 128), dtype=torch.float32):
     adam = functools.partial(torch.optim.Adam, lr=sac.lr, eps=1e-8)
 
     def init_runner(n_envs: int, generator: torch.Generator) -> SACRunner:
+        check_shardable(sac.capacity, sac.rollout_len * n_envs, mesh)
+        if mesh is not None:
+            replicate(generator, mesh)
         actor = make_actor(generator=generator)
         critic = make_critic(generator=generator)
         env_state, obs = api.reset_batch(n_envs, generator)
         log_alpha = torch.tensor(math.log(sac.init_alpha), dtype=dtype,
                                  device=api.device, requires_grad=True)
+        critic_tgt = copy.deepcopy(critic).requires_grad_(False)
+        shard_nets_tp(mesh, actor, critic, critic_tgt)
         return SACRunner(
-            actor=actor, critic=critic,
-            critic_tgt=copy.deepcopy(critic).requires_grad_(False),
+            actor=actor, critic=critic, critic_tgt=critic_tgt,
             log_alpha=log_alpha, opt_actor=adam(actor.parameters()),
             opt_critic=adam(critic.parameters()), opt_alpha=adam([log_alpha]),
-            replay=make_replay(sac.capacity, 2 * d + a_dim + 2, dtype,
-                               api.device),
+            replay=make_replay(
+                sac.capacity if mesh is None
+                else sac.capacity // mesh.size(ENV_AXIS),
+                2 * d + a_dim + 2, dtype, api.device, n_envs),
             env_state=env_state, obs=obs, p_pack=pack_params(env_state),
             generator=generator)
 
@@ -142,8 +173,10 @@ def make_sac(env_cfg, sac: SACConfig, hidden=(128, 128), dtype=torch.float32):
         at the new env state, (packed rows, rewards [T, N]))."""
         gen, st, ob = runner.generator, runner.env_state, runner.obs
         rows, rews = [], []
+        pick = None if mesh is None else (
+            lambda draw: draw_rows(mesh, draw, (ob.shape[0], a_dim)))
         for _ in range(sac.rollout_len):
-            a, _ = _squash(*runner.actor(ob), gen)
+            a, _ = _squash(*runner.actor(ob), gen, pick)
             st, ob2, r, done, _ = api.step(st, a, gen, runner.p_pack)
             r = r.to(dtype)
             rows.append(torch.cat([ob.to(dtype), a, r[:, None],
@@ -160,32 +193,41 @@ def make_sac(env_cfg, sac: SACConfig, hidden=(128, 128), dtype=torch.float32):
                      nobs=mat[:, d + a_dim + 2:])
 
     def _update_once(r: SACRunner, rp: Replay):
-        gen = r.generator
-        b = _unpack(sample_rows(rp, gen, sac.batch_size))
+        gen, bs = r.generator, sac.batch_size
+        if mesh is None:
+            b = _unpack(sample_rows(rp, gen, bs))
+            mean, pick = torch.mean, None
+        else:
+            rows, mask = sample_owned(rp, gen, bs, mesh)
+            b = _unpack(rows)
+            mean = lambda x: x.sum() / bs
+            pick = lambda draw: draw((bs, a_dim))[mask]
         alpha = torch.exp(r.log_alpha.detach())
         with torch.no_grad():
-            a_n, logp_n = _squash(*r.actor(b.nobs), gen)
+            a_n, logp_n = _squash(*r.actor(b.nobs), gen, pick)
             q1_t, q2_t = r.critic_tgt(b.nobs, a_n)
             target = b.rew + sac.gamma * (1.0 - b.done) * (
                 torch.minimum(q1_t, q2_t) - alpha * logp_n)
 
         q1, q2 = r.critic(b.obs, b.act)
-        cl = ((q1 - target) ** 2 + (q2 - target) ** 2).mean()
-        _adam_step(r.opt_critic, list(r.critic.parameters()), cl)
+        cl = mean((q1 - target) ** 2 + (q2 - target) ** 2)
+        (cl,) = _adam_step(r.opt_critic, list(r.critic.parameters()), cl,
+                           mesh, (cl.detach(),))
 
-        a, logp = _squash(*r.actor(b.obs), gen)
+        a, logp = _squash(*r.actor(b.obs), gen, pick)
         q1, q2 = r.critic(b.obs, a)
-        al = (alpha * logp - torch.minimum(q1, q2)).mean()
-        _adam_step(r.opt_actor, list(r.actor.parameters()), al)
+        al = mean(alpha * logp - torch.minimum(q1, q2))
+        al, ent = _adam_step(r.opt_actor, list(r.actor.parameters()), al,
+                             mesh, (al.detach(), -mean(logp.detach())))
 
-        alpha_loss = -(torch.exp(r.log_alpha)
-                       * (logp.detach() + sac.target_entropy)).mean()
-        _adam_step(r.opt_alpha, [r.log_alpha], alpha_loss)
+        alpha_loss = -mean(torch.exp(r.log_alpha)
+                           * (logp.detach() + sac.target_entropy))
+        _adam_step(r.opt_alpha, [r.log_alpha], alpha_loss, mesh)
 
         with torch.no_grad():
             for t, o in zip(r.critic_tgt.parameters(), r.critic.parameters()):
                 t.copy_((1.0 - sac.tau) * t + sac.tau * o)
-        return torch.stack([cl, al, -logp.mean()]).detach()
+        return torch.stack([cl, al, ent]).detach()
 
     def update(runner: SACRunner, rollout):
         """The replay insert and ``n_updates`` updates."""
@@ -193,9 +235,14 @@ def make_sac(env_cfg, sac: SACConfig, hidden=(128, 128), dtype=torch.float32):
         rp = insert_rows(runner.replay, rows)
         cl, al, ent = torch.stack([_update_once(runner, rp)
                                    for _ in range(sac.n_updates)]).mean(0)
+        r_mean, size = rews.mean(), rp.size
+        if mesh is not None:
+            w = mesh.size(ENV_AXIS)
+            r_mean = mesh.all_reduce(rews.sum()) / (rews.numel() * w)
+            size = size * w
         metrics = {"critic_loss": cl, "actor_loss": al, "entropy": ent,
                    "alpha": torch.exp(runner.log_alpha.detach()),
-                   "reward_mean": rews.mean(), "buffer_size": rp.size}
+                   "reward_mean": r_mean, "buffer_size": size}
         return dataclasses.replace(runner, replay=rp,
                                    update_i=runner.update_i + 1), metrics
 

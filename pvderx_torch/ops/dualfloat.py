@@ -32,7 +32,7 @@ import torch
 
 from pvderx_torch.ops.window import (
     P_FIELDS, U_FIELDS, _check_single, check_outputs, guard_launch,
-    unpack_struct)
+    pad_envs, unpack_struct)
 from pvderx_torch.params import DERParams, Exog
 from pvderx_torch.physics import rhs_core
 
@@ -397,8 +397,12 @@ def rk4_window_batch_df_ref(y_hi, y_lo, t0, p_pack, u_pack, *, n_ph: int,
                             n_sub: int, dt: float):
     """Plain torch version of the df32 window: `rhs_core` through `DFXP` on
     [n_s, N] field-major pairs. y_hi, y_lo: [N, n_s]; t0: [N]; p_pack:
-    [29, N]; u_pack: [15, N]; all float32. Returns (y1_hi, y1_lo)."""
+    [29, N]; u_pack: [15, N]; all float32. Returns (y1_hi, y1_lo). On the
+    CPU the batch runs padded (`ops.window.pad_envs`)."""
     _check_df(y_hi, y_lo, t0, p_pack, u_pack, n_ph)
+    n = y_hi.shape[0]
+    y_hi, y_lo, t0, p_pack, u_pack = pad_envs(
+        n, (y_hi, 0), (y_lo, 0), (t0, 0), (p_pack, 1), (u_pack, 1))
     xp = DFXP(y_hi.device)
     y = DF(y_hi.T, y_lo.T)
     p = unpack_struct(DERParams, DF(p_pack), P_FIELDS, n_ph=n_ph)
@@ -418,7 +422,7 @@ def rk4_window_batch_df_ref(y_hi, y_lo, t0, p_pack, u_pack, *, n_ph: int,
         k4 = rhs_core.rhs(y + h * k3, t + h, p, u, xp, prep, r4)
         y = y + (h * (1.0 / 6.0)) * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
         r1 = r4
-    return y.hi.T.contiguous(), y.lo.T.contiguous()
+    return y.hi.T[:n].contiguous(), y.lo.T[:n].contiguous()
 
 
 def rk4_window_batch_df(y_hi, y_lo, t0, p_pack, u_pack, *, n_ph: int,

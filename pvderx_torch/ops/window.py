@@ -26,6 +26,14 @@ Both compute what the reference Pallas kernel computes: exog held constant
 over the window; the window-invariant `Prep` hoisted once; the grid phasor
 evaluated twice per substep (k2/k3 share the half-point, and the endpoint is
 the next substep's k1); Kahan-compensated accumulation in a fixed order.
+
+On the CPU the plain versions run the batch padded to a multiple of
+`CPU_LANES` envs (`pad_envs`): torch's CPU elementwise kernels run a vector
+loop over whole blocks and a scalar loop over the rest, and the two can
+differ in the last bit (``pow`` with a scalar exponent). Padded, every env
+takes the vector loop, so an env's result does not depend on the batch
+size or on its place in the batch: W ranks stepping N/W envs each give the
+one-rank run's bits. (One thread per env on the card has no such effect.)
 """
 from __future__ import annotations
 
@@ -38,6 +46,8 @@ from pvderx_torch.physics import fleet, rhs_core
 from pvderx_torch.physics.xp import like
 
 P_FIELDS = [f.name for f in dataclasses.fields(DERParams) if f.name != "n_ph"]
+# a multiple of every CPU vector loop's block (AVX-512 float32: 2 x 16 lanes)
+CPU_LANES = 32
 U_FIELDS = [f.name for f in dataclasses.fields(Exog)]
 
 # Operations per env per RK4 substep of this window program (4 RHS
@@ -70,6 +80,18 @@ def window_bytes(n: int, n_ph: int) -> int:
 def window_ops(n: int, n_ph: int, n_sub: int) -> int:
     """Arithmetic operations one window of n envs performs."""
     return OPS_PER_SUBSTEP[n_ph] * n_sub * n
+
+
+def pad_envs(n: int, *tensors_axes):
+    """The tensors, each ``(tensor, env axis)``, padded on the CPU to a
+    multiple of `CPU_LANES` envs with copies of env ``n - 1`` (unchanged on
+    the card, or when ``n`` is a multiple already)."""
+    k = -n % CPU_LANES
+    if k == 0 or tensors_axes[0][0].device.type != "cpu":
+        return [t for t, _ in tensors_axes]
+    return [torch.cat([t, t.narrow(ax, n - 1, 1).expand(
+        *(k if i == ax else d for i, d in enumerate(t.shape)))], ax)
+        for t, ax in tensors_axes]
 
 
 def _substep_constants(dt: float, n_sub: int):
@@ -172,6 +194,9 @@ def rk4_window_batch_ref(y, t0, p_pack, u_pack, *, n_ph: int, n_sub: int,
     `rhs_core` on [n_s, N] field-major tensors. y: [N, n_s]; t0: [N];
     p_pack: [29, N]; u_pack: [15, N]. Returns y1 [N, n_s]."""
     _check_single(y, t0, p_pack, u_pack, n_ph)
+    n = y.shape[0]
+    y, t0, p_pack, u_pack = pad_envs(n, (y, 0), (t0, 0), (p_pack, 1),
+                                     (u_pack, 1))
     xp = like(y)
     p = unpack_struct(DERParams, p_pack, P_FIELDS, n_ph=n_ph)
     u = unpack_struct(Exog, u_pack, U_FIELDS)
@@ -193,7 +218,7 @@ def rk4_window_batch_ref(y, t0, p_pack, u_pack, *, n_ph: int, n_sub: int,
         s = yt + d
         c = (s - yt) - d
         yt, r1 = s, r4
-    return yt.T.contiguous()
+    return yt.T[:n].contiguous()
 
 
 def rk4_window_batch(y, t0, p_pack, u_pack, *, n_ph: int, n_sub: int,
@@ -250,6 +275,9 @@ def rk4_fleet_window_batch_ref(y, t0, p_pack, u_pack, *, n_ph: int, m: int,
     `pcc_voltage`, then `rhs_given_v` per unit. y: [N, M, n_s]; t0: [N];
     p_pack: [29, N, M]; u_pack: [15, N, M]. Returns y1 [N, M, n_s]."""
     _check_fleet(y, t0, p_pack, u_pack, n_ph, m)
+    n = y.shape[0]
+    y, t0, p_pack, u_pack = pad_envs(n, (y, 0), (t0, 0), (p_pack, 1),
+                                     (u_pack, 1))
     xp = like(y)
     p = unpack_struct(DERParams, p_pack, P_FIELDS, n_ph=n_ph)
     u = unpack_struct(Exog, u_pack, U_FIELDS)
@@ -280,7 +308,7 @@ def rk4_fleet_window_batch_ref(y, t0, p_pack, u_pack, *, n_ph: int, m: int,
         s = yt + d
         c = (s - yt) - d
         yt, r1 = s, r4
-    return yt.permute(1, 2, 0).contiguous()
+    return yt.permute(1, 2, 0)[:n].contiguous()
 
 
 def rk4_fleet_window_batch(y, t0, p_pack, u_pack, *, n_ph: int, m: int,

@@ -2,7 +2,9 @@
 JAX or the JAX package.
 
 - In a fresh interpreter, importing `pvderx_torch` and every submodule
-  leaves neither `jax` nor any `pvderx` module in `sys.modules`.
+  (the distributed layer `pvderx_torch.dist.*` and the training examples
+  among them) leaves neither `jax` nor any `pvderx` module in
+  `sys.modules`.
 - An AST scan of `pvderx_torch/**/*.py` and `chip_smoke.py` finds no import
   of `jax` or of `pvderx` / `pvderx.*`.
 """
@@ -41,7 +43,12 @@ def test_torch_import_pulls_in_no_jax():
             "pvderx_torch.examples.standalone_simulation",
             "pvderx_torch.examples.gym_rollout",
             "pvderx_torch.examples.fleet_simulation",
-            "pvderx_torch.examples.gain_tuning"} <= set(mods) and len(mods) >= 45
+            "pvderx_torch.examples.gain_tuning", "pvderx_torch.dist",
+            "pvderx_torch.dist.mesh", "pvderx_torch.dist.multihost",
+            "pvderx_torch.dist.sharding", "pvderx_torch.dist.tp",
+            "pvderx_torch.dist.launch", "pvderx_torch.examples.train_ppo",
+            "pvderx_torch.examples.train_dqn",
+            "pvderx_torch.examples.train_sac"} <= set(mods) and len(mods) >= 55
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
