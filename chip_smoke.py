@@ -2616,15 +2616,18 @@ def run_dist(device, card, s=DIST, timeout=900):
         got = sorted(int(ln.split("k1=")[1]) for ln in stdout.splitlines()
                      if ln.startswith("LAUNCHES "))
         launches[name] = got
-        phase("dist_examples", card=card, example=name, rc=p.returncode,
-              k1_launches_per_rank=got, want=want)
+        phase("dist_examples", card=card, backend="gloo", world=2,
+              example=name, rc=p.returncode, k1_launches_per_rank=got,
+              want=want)
         check(p.returncode == 0 and len(got) == 2,
               f"dist_examples {name}: rc {p.returncode}\n{stderr[-2000:]}")
         check(not cuda or got == [want, want],
               f"dist_examples {name}: launches {got}, want {want}")
     seconds = dict(world1_s=w1_s, world2_s=w2_s, world4_s=w4_s,
                    examples_s=ex_s, total_s=time.perf_counter() - t_all)
-    phase("dist", card=card, **seconds)
+    phase("dist", card=card, backends={"world1": "nccl" if cuda else "gloo",
+                                       "world2": "gloo", "world4": "gloo"},
+          **seconds)
     if fails:
         raise AssertionError("dist: " + "; ".join(fails))
     return dict(w1=w1, r2=r2, r4=r4, examples=launches, seconds=seconds)

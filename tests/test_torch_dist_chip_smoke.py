@@ -32,6 +32,10 @@ def test_torch_chip_smoke_dist_phases_run_on_the_cpu(capsys):
                  "dist_checkpoint", "dist_examples"):
         assert f"[{name}] " in printed, name
     assert '"backend": "gloo", "world": 2' in printed
+    assert all('"backend": "gloo", "world": ' in ln for ln in
+               printed.splitlines() if ln.startswith(("[dist_env]",
+                                                      "[dist_tp]",
+                                                      "[dist_examples]")))
     assert all(g["bitwise"] == dict.fromkeys(("obs", "rews", "dones", "y"),
                                              True)
                for kind in ("env", "fleet", "df32") for g in out["r2"][kind])
