@@ -89,7 +89,7 @@ Phases, one line each (a failing phase raises, so the script exits non-zero):
               float64 LSODA truth: trapezoid at n_sub 10 and 20, backward
               Euler at 40, each <= the reference test's bound (5e-6, 1e-6,
               5e-5) + GATE_TOL; then the env with each scheme at n_sub 16 on
-              the sag scenario (32768 envs, one 60-step horizon through
+              the sag scenario (32768 envs, one 40-step horizon through
               `rollout`): ms per step, env-steps/s, device operations per
               step (the profiler, one step), peak MiB; K1 never launches.
 20. fleet_implicit — the trapezoidal fleet (M = 16, the stacked 176-unknown
@@ -125,8 +125,8 @@ Phases, one line each (a failing phase raises, so the script exits non-zero):
               from another seed trains on bitwise equal to the original.
 27. grad    — tests/test_grad.py's loss on the card through the eager
               window in float64: autograd within 1e-5 of a central finite
-              difference, 5 gradient steps lower it; the float32 gradient;
-              one value_and_grad of `examples.gain_tuning` at 12 windows,
+              difference, 2 gradient steps lower it; the float32 gradient;
+              one value_and_grad of `examples.gain_tuning` at 4 windows,
               and at its default 60 where that scales to <= 120 s.
 28. examples — the four `pvderx_torch.examples` as subprocesses, started
               together: each exits 0; K1 / K2 launches as their arguments
@@ -1064,6 +1064,7 @@ def run_learn_gates(device, card):
 IMPLICIT_WINDOW_CASES = (("trapezoid", 10, 5e-6), ("trapezoid", 20, 1e-6),
                          ("backward_euler", 40, 5e-5))
 IMPLICIT_SUB = 16
+IMPLICIT_STEPS = 40            # one horizon: the sag (0.3-0.6 s) and recovery
 # the sag scenario of tests/test_variants.py:128-137 (`_sag_cfg`)
 SAG_SCEN = dict(p_sag=1.0, p_freq=0.0, sag_depth_lo=0.5, sag_depth_hi=0.5,
                 sag_t_lo=0.3, sag_t_hi=0.3, sag_dur_lo=0.3, sag_dur_hi=0.3)
@@ -1176,7 +1177,7 @@ def check_implicit_window(device, cases=IMPLICIT_WINDOW_CASES, n=128,
 
 
 def run_implicit_env(device, card, n_envs=N_ENVS, n_sub=IMPLICIT_SUB,
-                     steps=WARM_STEPS):
+                     steps=IMPLICIT_STEPS):
     """Phase 19b: the env with each implicit scheme on the sag scenario, one
     horizon of ``steps`` steps at full width through `rollout`: ms per step,
     env-steps/s, device operations per step (one step under the profiler),
@@ -1531,9 +1532,9 @@ DIAG_TRACE_STEPS = 3
 GRAD_FD_TOL = 1e-5        # autograd vs central FD, float64 (tests/test_grad.py)
 GRAD_WINDOWS, GRAD_SUB = 6, 40     # tests/test_grad.py's loss
 # gain tuning's default value_and_grad (60 windows x 72 substeps) is timed
-# when 12 windows scale to at most this many seconds
+# when 4 windows scale to at most this many seconds
 TUNE_LIMIT_S = 120.0
-TUNE_WINDOWS, TUNE_PROBE_WINDOWS = 60, 12
+TUNE_WINDOWS, TUNE_PROBE_WINDOWS = 60, 4
 # each example on the card at a small size: (module, arguments, the launches
 # it must make of K1 and K2)
 EXAMPLES = (
@@ -1840,7 +1841,7 @@ def _grad_of(kp, p, u, y0, n_windows=GRAD_WINDOWS):
     return loss.item(), g.item()
 
 
-def run_grad(device, card, steps=5, windows=GRAD_WINDOWS,
+def run_grad(device, card, steps=2, windows=GRAD_WINDOWS,
              tune_windows=TUNE_WINDOWS, tune_probe=TUNE_PROBE_WINDOWS,
              tune_sub=None):
     """Phase 27: gradients through the eager window on the card.
@@ -1970,13 +1971,13 @@ def run_examples(device, card, examples=EXAMPLES, timeout=600):
 DIST = dict(n_envs=N_ENVS, steps=CHUNK_STEPS, short=60, fleet_envs=2048,
             m=FLEET_M, n_sub=N_SUB, ppo_envs=PPO_ENVS, off_envs=OFFPOLICY_ENVS,
             hidden=[128, 128], ppo=[16, 4, 4], off=[4, 4, 1024, 262144],
-            timed=5, off_timed=3, fleet_timed=3, tp_timed=2,
+            timed=5, off_timed=3, fleet_timed=3, tp_timed=1,
             examples=[["train_ppo", ["--tp", "2", "--n-envs", "1024",
-                                     "--updates", "2"], 32],
-                      ["train_dqn", ["--n-envs", "1024", "--updates", "2"],
-                       16],
-                      ["train_sac", ["--n-envs", "512", "--updates", "2"],
-                       16]])
+                                     "--updates", "1"], 16],
+                      ["train_dqn", ["--n-envs", "1024", "--updates", "1"],
+                       8],
+                      ["train_sac", ["--n-envs", "512", "--updates", "1"],
+                       8]])
 DIST_PARAM_TOL = 1e-5        # W ranks vs one rank, params (test_dist.py:73)
 DIST_REWARD_TOL = 1e-6       # reward_mean (test_dist.py:74)
 DIST_RESET_TOL = 1e-4        # a reset of N/W envs vs the slice of N's
@@ -2196,15 +2197,21 @@ def _leg_env(kind, workdir, mesh, s):
                 reset_obs_err=float((obs_r - saved["obs"][sl]).abs().max()))
 
 
+# `checkpoint.restore` replaces every tensor of its target (modules and
+# optimizers loaded in place), so a runner of a few envs serves as the
+# template of a full-width one, without a full-width reset
+TEMPLATE_ENVS = 4
+
+
 def _whole_runner(name, workdir, dev, s):
     """The runner world 1 saved, rebuilt whole on this rank."""
     import os
 
     from pvderx_torch.diag import checkpoint
 
-    init, _, n, _ = _dist_learners(dev, s)[name]
+    init = _dist_learners(dev, s)[name][0]
     return checkpoint.restore(os.path.join(workdir, f"{name}0.pt"),
-                              init(n, _gen(dev, 1)))
+                              init(TEMPLATE_ENVS, _gen(dev, 1)))
 
 
 class _CollectiveClock:
@@ -2350,20 +2357,20 @@ def _leg_ckpt_tp(workdir, mesh, s):
 
     dev = mesh.device
     mesh2 = make_mesh_2d(2, 2, device=dev)
-    init, ts1, n, _ = _dist_learners(dev, s)["ppo"]
+    init, ts1, _, _ = _dist_learners(dev, s)["ppo"]
     _, ts2, _, _ = _dist_learners(dev, s, mesh2)["ppo"]
     original, _ = ts1(_whole_runner("ppo", workdir, dev, s))
     path = checkpoint.save(os.path.join(workdir, "ckpt-dp2"),
                            dist.shard_runner(original, mesh2), mesh2)
+    template = lambda seed: init(TEMPLATE_ENVS, _gen(dev, seed))
     try:
-        checkpoint.restore(path, dist.shard_runner(init(n, _gen(dev, 8)),
-                                                   mesh), mesh)
+        checkpoint.restore(path, dist.shard_runner(template(8), mesh), mesh)
         wrong = None
     except ValueError as e:
         wrong = str(e)
     direct = dist.shard_runner_tp(original, mesh2)
     restored = checkpoint.restore(
-        path, dist.shard_runner_tp(init(n, _gen(dev, 9)), mesh2), mesh2)
+        path, dist.shard_runner_tp(template(9), mesh2), mesh2)
     direct, m1 = ts2(direct)
     restored, m2 = ts2(restored)
     same = all(torch.equal(a, b) for a, b in zip(direct.net.parameters(),
@@ -2420,8 +2427,10 @@ def example_rank(module: str, args) -> int:
     runpy.run_module(module, run_name="__main__", alter_sys=True)
     from pvderx_torch.ops.window import rk4_window_batch
 
-    print(f"LAUNCHES rank={os.environ.get('RANK')} "
-          f"k1={rk4_window_batch.launches}", flush=True)
+    # one write of the whole line: the ranks share the launcher's stdout
+    sys.stdout.write(f"LAUNCHES rank={os.environ.get('RANK')} "
+                     f"k1={rk4_window_batch.launches}\n")
+    sys.stdout.flush()
     return 0
 
 
@@ -2495,6 +2504,7 @@ def run_dist(device, card, s=DIST, timeout=900):
     2 ranks each, started together. Returns the readings; raises on the
     first failed check once every line has printed."""
     import os
+    import re
     import tempfile
 
     cuda = torch.device(device).type == "cuda"
@@ -2613,8 +2623,8 @@ def run_dist(device, card, s=DIST, timeout=900):
     # -- dist_examples -----------------------------------------------------------
     launches = {}
     for name, (want, p, (stdout, stderr)) in ex.items():
-        got = sorted(int(ln.split("k1=")[1]) for ln in stdout.splitlines()
-                     if ln.startswith("LAUNCHES "))
+        got = sorted(int(k) for k in re.findall(
+            r"LAUNCHES rank=\d+ k1=(\d+)", stdout))
         launches[name] = got
         phase("dist_examples", card=card, backend="gloo", world=2,
               example=name, rc=p.returncode, k1_launches_per_rank=got,
