@@ -89,7 +89,7 @@ Phases, one line each (a failing phase raises, so the script exits non-zero):
               float64 LSODA truth: trapezoid at n_sub 10 and 20, backward
               Euler at 40, each <= the reference test's bound (5e-6, 1e-6,
               5e-5) + GATE_TOL; then the env with each scheme at n_sub 16 on
-              the sag scenario (32768 envs, one 40-step horizon through
+              the sag scenario (32768 envs, one 60-step horizon through
               `rollout`): ms per step, env-steps/s, device operations per
               step (the profiler, one step), peak MiB; K1 never launches.
 20. fleet_implicit — the trapezoidal fleet (M = 16, the stacked 176-unknown
@@ -125,8 +125,8 @@ Phases, one line each (a failing phase raises, so the script exits non-zero):
               from another seed trains on bitwise equal to the original.
 27. grad    — tests/test_grad.py's loss on the card through the eager
               window in float64: autograd within 1e-5 of a central finite
-              difference, 2 gradient steps lower it; the float32 gradient;
-              one value_and_grad of `examples.gain_tuning` at 4 windows,
+              difference, 5 gradient steps lower it; the float32 gradient;
+              one value_and_grad of `examples.gain_tuning` at 12 windows,
               and at its default 60 where that scales to <= 120 s.
 28. examples — the four `pvderx_torch.examples` as subprocesses, started
               together: each exits 0; K1 / K2 launches as their arguments
@@ -183,8 +183,10 @@ Needs one CUDA card; imports torch, numpy, scipy and pvderx_torch only
 """
 from __future__ import annotations
 
+import concurrent.futures
 import functools
 import json
+import multiprocessing
 import subprocess
 import sys
 import time
@@ -213,7 +215,13 @@ CHUNK_STEPS = 600        # = the episode horizon: truncation and autoreset fire
 DT = 1.0 / 60.0
 
 
+_T0 = time.perf_counter()
+
+
 def phase(name: str, **kv):
+    """One line ``[name] {json}``; ``at_s`` is the seconds since the script
+    started, so consecutive lines give each phase's share of the run."""
+    kv["at_s"] = time.perf_counter() - _T0
     print(f"[{name}] " + json.dumps(kv), flush=True)
 
 
@@ -229,12 +237,15 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def _time_ms(fn, reps: int, device) -> float:
+def _time_ms(fn, reps: int, device, warm: bool = True) -> float:
     """Device time per call by CUDA events around ``reps`` calls, each end
-    synced by `diag.profiler.force_sync` of a call's output."""
+    synced by `diag.profiler.force_sync` of a call's output; ``warm`` runs
+    one untimed call first (a caller whose function already ran at these
+    shapes may skip it)."""
     from pvderx_torch.diag.profiler import force_sync
 
-    force_sync(fn())
+    if warm:
+        force_sync(fn())
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -316,15 +327,44 @@ def require_bitwise(what: str, err: float) -> None:
         raise AssertionError(f"{what}: {err!r}, not bitwise equal (0.0)")
 
 
-@functools.cache
-def _gate_truth(preset: str, n_steps: int):
-    """(float64 LSODA trajectory of the gate scenario, seconds it took)."""
+# The float64 LSODA truths of the gate, fleet gate, sag and sim phases run
+# on the host alone. `prefetch_truths` starts them in worker processes
+# while the kernels build; `_truth` takes a started one's result, or
+# computes it here.
+TRUTH_KEYS = (("gate", "10", 120), ("gate", "50", 120),
+              ("fleet_gate", FLEET_M, 36), ("sag", 90), ("sim", 180))
+_TRUTH_JOBS = {}
+
+
+def _truth_job(key):
+    """(float64 LSODA trajectory of ``key``'s scenario, seconds it took)."""
     from pvderx_torch import make_params, oracle
 
+    kind, *args = key
+    p = make_params(args[0] if kind == "gate" else "10")
     t = time.perf_counter()
-    truth = oracle.run_trajectory(make_params(preset),
-                                  oracle.gate_scenario_exogs(n_steps))
+    if kind == "gate":
+        truth = oracle.run_trajectory(p, oracle.gate_scenario_exogs(args[1]))
+    elif kind == "fleet_gate":
+        truth = oracle.run_fleet_trajectory(
+            *oracle.fleet_gate_scenario(p, *args))
+    elif kind == "sag":
+        truth = oracle.run_trajectory(p, [_sag_exog(k) for k in range(*args)])
+    else:
+        truth = oracle.run_trajectory(p, _sim_exogs(*args))
     return truth, time.perf_counter() - t
+
+
+def prefetch_truths(pool, keys=TRUTH_KEYS):
+    """Start each truth of ``keys`` on ``pool`` (a process pool)."""
+    for key in keys:
+        _TRUTH_JOBS[key] = pool.submit(_truth_job, key)
+
+
+@functools.cache
+def _truth(*key):
+    job = _TRUTH_JOBS.pop(key, None)
+    return job.result() if job is not None else _truth_job(key)
 
 
 def check_gate(device, n_steps=120, n=128, n_sub=N_SUB):
@@ -335,7 +375,7 @@ def check_gate(device, n_steps=120, n=128, n_sub=N_SUB):
 
     p = make_params("10")
     exogs = oracle.gate_scenario_exogs(n_steps)
-    truth, truth_s = _gate_truth("10", n_steps)
+    truth, truth_s = _truth("gate", "10", n_steps)
     f = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32, device=device)
     pp = f([np.full(n, getattr(p, k)) for k in P_FIELDS])
     y = f(np.broadcast_to(truth[0], (n, p.n_states)))
@@ -566,9 +606,7 @@ def check_fleet_gate(device, m=FLEET_M, n_steps=36, n=128, n_sub=N_SUB):
 
     p = make_params("10")
     fp, fus = oracle.fleet_gate_scenario(p, m, n_steps)
-    t = time.perf_counter()
-    truth = oracle.run_fleet_trajectory(fp, fus)
-    truth_s = time.perf_counter() - t
+    truth, truth_s = _truth("fleet_gate", m, n_steps)
     f = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32, device=device)
     per_env = lambda tree, names: f([np.broadcast_to(getattr(tree, k), (n, m))
                                      for k in names])
@@ -785,7 +823,7 @@ def check_df_gate(device, cases=DF_GATE_CASES, n_steps=120, n=128):
     errs = {}
     for preset, n_sub in cases:
         p = make_params(preset)
-        truth, truth_s = _gate_truth(preset, n_steps)
+        truth, truth_s = _truth("gate", preset, n_steps)
         pp = f([np.full(n, getattr(p, k)) for k in P_FIELDS])
         y_hi = f(np.broadcast_to(truth[0], (n, p.n_states)))
         y_lo = torch.zeros_like(y_hi)
@@ -856,8 +894,9 @@ def run_df_main(device, card, n_envs=N_ENVS, n_sub=N_SUB, warm=WARM_STEPS,
             10, device)
         k1_ms = _time_ms(lambda: rk4_window_batch(state.y, t_win, pk, uk, **kw),
                          20, device)
+        # the plain df32 version already ran at these shapes in df_kernel
         plain_ms = _time_ms(lambda: rk4_window_batch_df_ref(
-            state.y, y_lo, t_win, pk, uk, **kw), 1, device)
+            state.y, y_lo, t_win, pk, uk, **kw), 1, device, warm=False)
     # K3 three-phase at the same width and n_sub
     k3_50_ms = None
     if cuda:
@@ -1064,7 +1103,6 @@ def run_learn_gates(device, card):
 IMPLICIT_WINDOW_CASES = (("trapezoid", 10, 5e-6), ("trapezoid", 20, 1e-6),
                          ("backward_euler", 40, 5e-5))
 IMPLICIT_SUB = 16
-IMPLICIT_STEPS = 40            # one horizon: the sag (0.3-0.6 s) and recovery
 # the sag scenario of tests/test_variants.py:128-137 (`_sag_cfg`)
 SAG_SCEN = dict(p_sag=1.0, p_freq=0.0, sag_depth_lo=0.5, sag_depth_hi=0.5,
                 sag_t_lo=0.3, sag_t_hi=0.3, sag_dur_lo=0.3, sag_dur_hi=0.3)
@@ -1095,17 +1133,6 @@ def _sag_exog(k: int):
 
     u = nominal_exog()
     return dataclasses.replace(u, v_g=0.5) if 30 <= k < 60 else u
-
-
-@functools.cache
-def _sag_truth(n_windows: int):
-    """(float64 LSODA trajectory of the sag, seconds it took)."""
-    from pvderx_torch import make_params, oracle
-
-    t = time.perf_counter()
-    truth = oracle.run_trajectory(make_params("10"),
-                                  [_sag_exog(k) for k in range(n_windows)])
-    return truth, time.perf_counter() - t
 
 
 def _device_ops(fn, device):
@@ -1146,7 +1173,7 @@ def check_implicit_window(device, cases=IMPLICIT_WINDOW_CASES, n=128,
     from pvderx_torch.ode.implicit import WINDOWS
     from pvderx_torch.ops.window import rk4_window_batch
 
-    truth, truth_s = _sag_truth(n_windows)
+    truth, truth_s = _truth("sag", n_windows)
     der = _batch(make_params("10"), n, device)
     y0 = torch.tensor(np.broadcast_to(truth[0], (n, truth.shape[1])),
                       dtype=torch.float32, device=device)
@@ -1177,7 +1204,7 @@ def check_implicit_window(device, cases=IMPLICIT_WINDOW_CASES, n=128,
 
 
 def run_implicit_env(device, card, n_envs=N_ENVS, n_sub=IMPLICIT_SUB,
-                     steps=IMPLICIT_STEPS):
+                     steps=WARM_STEPS):
     """Phase 19b: the env with each implicit scheme on the sag scenario, one
     horizon of ``steps`` steps at full width through `rollout`: ms per step,
     env-steps/s, device operations per step (one step under the profiler),
@@ -1420,7 +1447,6 @@ def run_sim(device, card, t_stop=3.0, knob_stop=1.0):
     then the integrator knob (tests/test_variants.py:186-206): trapezoid at
     n_sub 16 (no K1 launch) and RK4 at 72 over 1 s of a 0.6 pu sag, finite
     and within KNOB_TOL on Vdc; on the card, float64 with RK4 raises."""
-    from pvderx_torch import make_params, oracle
     from pvderx_torch.ops.window import rk4_window_batch
     from pvderx_torch.scenario import EventBuilder
     from pvderx_torch.sim import DynamicSimulation
@@ -1436,9 +1462,7 @@ def run_sim(device, card, t_stop=3.0, knob_stop=1.0):
     series = sim.run_simulation()
     sim_s = time.perf_counter() - t
     launches = rk4_window_batch.launches
-    t = time.perf_counter()
-    truth = oracle.run_trajectory(make_params("10"), _sim_exogs(sim.n_steps))
-    truth_s = time.perf_counter() - t
+    truth, truth_s = _truth("sim", sim.n_steps)
     err = float(np.abs(series["y"] - truth[1:]).max())
 
     knob = EventBuilder()
@@ -1532,9 +1556,9 @@ DIAG_TRACE_STEPS = 3
 GRAD_FD_TOL = 1e-5        # autograd vs central FD, float64 (tests/test_grad.py)
 GRAD_WINDOWS, GRAD_SUB = 6, 40     # tests/test_grad.py's loss
 # gain tuning's default value_and_grad (60 windows x 72 substeps) is timed
-# when 4 windows scale to at most this many seconds
+# when 12 windows scale to at most this many seconds
 TUNE_LIMIT_S = 120.0
-TUNE_WINDOWS, TUNE_PROBE_WINDOWS = 60, 4
+TUNE_WINDOWS, TUNE_PROBE_WINDOWS = 60, 12
 # each example on the card at a small size: (module, arguments, the launches
 # it must make of K1 and K2)
 EXAMPLES = (
@@ -1841,7 +1865,7 @@ def _grad_of(kp, p, u, y0, n_windows=GRAD_WINDOWS):
     return loss.item(), g.item()
 
 
-def run_grad(device, card, steps=2, windows=GRAD_WINDOWS,
+def run_grad(device, card, steps=5, windows=GRAD_WINDOWS,
              tune_windows=TUNE_WINDOWS, tune_probe=TUNE_PROBE_WINDOWS,
              tune_sub=None):
     """Phase 27: gradients through the eager window on the card.
@@ -2447,6 +2471,58 @@ def _launch_ranks(nproc, args, root, cpu, timeout):
                             stderr=subprocess.PIPE, text=True)
 
 
+def start_dist_examples(device, s=DIST, timeout=900):
+    """Start the three training examples, 2 gloo ranks each, all together
+    (phase 34). They check exit codes and launch counts only, so they may
+    run beside phase 28's examples. Returns (start time, [(name, want,
+    launcher process)]) for `finish_dist_examples`."""
+    import os
+
+    cuda = torch.device(device).type == "cuda"
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = []
+    try:
+        for name, args, want in s["examples"]:
+            procs.append((name, want, _launch_ranks(
+                2, ["-m", "chip_smoke", "--example-rank",
+                    f"pvderx_torch.examples.{name}", *args, "--n-sub",
+                    str(s["n_sub"])] + ([] if cuda else ["--cpu"]), root,
+                not cuda, timeout)))
+    except BaseException:
+        stop_launches([p for _, _, p in procs])
+        raise
+    return time.perf_counter(), procs
+
+
+def finish_dist_examples(started, timeout=900):
+    """Wait for the examples `start_dist_examples` started: ({name: (want,
+    return code, (stdout, stderr))}, seconds since their start)."""
+    t, procs = started
+    try:
+        ex = {name: (want, p.communicate(timeout=timeout + 60))
+              for name, want, p in procs}
+    finally:
+        stop_launches([p for _, _, p in procs])
+    return {name: (want, p.returncode, ex[name][1])
+            for name, want, p in procs}, time.perf_counter() - t
+
+
+def stop_launches(procs) -> None:
+    """Interrupt launchers still running (each then stops its ranks) and
+    wait for them."""
+    import signal
+
+    for p in procs:
+        if p.poll() is None:
+            p.send_signal(signal.SIGINT)
+    for p in procs:
+        try:
+            p.communicate(timeout=30)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.communicate()
+
+
 def _print_partial(card, w1, workdir, legs, nproc):
     """What a failed run of ranks left: world 1's readings and the legs
     that finished, printed as they are."""
@@ -2497,12 +2573,14 @@ def dist_launches(out) -> dict:
                "dist_df32_w2": per(r2["df32"])}}
 
 
-def run_dist(device, card, s=DIST, timeout=900):
+def run_dist(device, card, s=DIST, timeout=900, examples=None):
     """Phases 29-34 (the module docstring): world 1 in this process on the
     card's backend (NCCL), world 2 and world 4 as gloo ranks sharing the
     card (`pvderx_torch.dist.launch`), and the three training examples as
-    2 ranks each, started together. Returns the readings; raises on the
-    first failed check once every line has printed."""
+    2 ranks each, started together: ``examples``, what
+    `finish_dist_examples` returned if the caller ran them, else here, after
+    world 4. Returns the readings; raises on the first failed check once
+    every line has printed."""
     import os
     import re
     import tempfile
@@ -2545,15 +2623,8 @@ def run_dist(device, card, s=DIST, timeout=900):
             raise AssertionError(f"dist world 4 failed (rc {p4.returncode}):"
                                  f"\n{o4[1][-3000:]}")
         r2, r4 = _read_legs(workdir, legs2, 2), _read_legs(workdir, legs4, 4)
-        t = time.perf_counter()
-        procs = [(name, want, _launch_ranks(
-            2, ["-m", "chip_smoke", "--example-rank",
-                f"pvderx_torch.examples.{name}", *args, "--n-sub",
-                str(s["n_sub"])] + ([] if cuda else ["--cpu"]), root,
-            not cuda, timeout)) for name, args, want in s["examples"]]
-        ex = {name: (want, p, p.communicate(timeout=timeout + 60))
-              for name, want, p in procs}
-        ex_s = time.perf_counter() - t
+        ex, ex_s = examples or finish_dist_examples(
+            start_dist_examples(device, s, timeout), timeout)
 
     # -- dist_env -------------------------------------------------------------
     for kind in ("env", "fleet", "df32"):
@@ -2622,15 +2693,14 @@ def run_dist(device, card, s=DIST, timeout=900):
               f"dist_checkpoint onto (2, 2): {g}")
     # -- dist_examples -----------------------------------------------------------
     launches = {}
-    for name, (want, p, (stdout, stderr)) in ex.items():
+    for name, (want, rc, (stdout, stderr)) in ex.items():
         got = sorted(int(k) for k in re.findall(
             r"LAUNCHES rank=\d+ k1=(\d+)", stdout))
         launches[name] = got
         phase("dist_examples", card=card, backend="gloo", world=2,
-              example=name, rc=p.returncode, k1_launches_per_rank=got,
-              want=want)
-        check(p.returncode == 0 and len(got) == 2,
-              f"dist_examples {name}: rc {p.returncode}\n{stderr[-2000:]}")
+              example=name, rc=rc, k1_launches_per_rank=got, want=want)
+        check(rc == 0 and len(got) == 2,
+              f"dist_examples {name}: rc {rc}\n{stderr[-2000:]}")
         check(not cuda or got == [want, want],
               f"dist_examples {name}: launches {got}, want {want}")
     seconds = dict(world1_s=w1_s, world2_s=w2_s, world4_s=w4_s,
@@ -2686,9 +2756,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    from pvderx_torch.diag import roofline
-    from pvderx_torch.ops import _build
-
     device = "cuda"
     kind = torch.cuda.get_device_name(0)
     card = _smi("name,power.limit")
@@ -2696,6 +2763,20 @@ def main() -> int:
     phase("device", torch_device=kind, nvidia_smi=card,
           max_sm_clock_mhz=clock_mhz, torch=torch.__version__,
           cuda=torch.version.cuda)
+    with concurrent.futures.ProcessPoolExecutor(
+            len(TRUTH_KEYS),
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        try:
+            prefetch_truths(pool)
+            return run_phases(device, kind, card, clock_mhz)
+        finally:
+            pool.shutdown(cancel_futures=True)
+
+
+def run_phases(device, kind, card, clock_mhz) -> int:
+    """Phases 2-34, the kernels line, the card line and the last line."""
+    from pvderx_torch.diag import roofline
+    from pvderx_torch.ops import _build
 
     t = time.perf_counter()
     _build.build()
@@ -2729,8 +2810,15 @@ def main() -> int:
     debug_out = run_diag_debug(device, card)
     ckpt_out = run_diag_checkpoint(device, card)
     run_grad(device, card)
-    examples_out = run_examples(device, card)
-    dist_out = run_dist(device, card)
+    # phase 34's examples run beside phase 28's (neither is timed)
+    started = start_dist_examples(device)
+    try:
+        examples_out = run_examples(device, card)
+    except BaseException:
+        stop_launches([p for _, _, p in started[1]])
+        raise
+    dist_ex = finish_dist_examples(started)
+    dist_out = run_dist(device, card, examples=dist_ex)
     dl = dist_launches(dist_out)
 
     # the bounds at the main path's shapes (diag.roofline), the lane-issue

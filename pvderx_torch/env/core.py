@@ -27,8 +27,8 @@ from pvderx_torch.dist.mesh import draw_rows
 from pvderx_torch.ode import newton_solve
 from pvderx_torch.ode.implicit import WINDOWS as IMPLICIT_WINDOWS
 from pvderx_torch.ops.window import (
-    P_FIELDS, U_FIELDS, pack_struct, pad_envs, rk4_window_batch,
-    unpack_struct)
+    P_FIELDS, U_FIELDS, pack_struct, pad_draws, rk4_window_batch,
+    unpack_struct, unpad_reset)
 from pvderx_torch.params import DERParams, Exog, make_params
 from pvderx_torch.physics import rhs_core
 from pvderx_torch.physics.xp import TorchXP, like
@@ -354,24 +354,6 @@ def _reward(cfg: EnvConfig, vdc, vdc_ref, q_pcc, q_ref, v_mag, trip_now):
 # ---------------------------------------------------------------------------
 # reset / step
 # ---------------------------------------------------------------------------
-def padded_draws(n: int, *draws):
-    """The reset's draws ([n, ...] each) padded on the CPU to a multiple of
-    `ops.window.CPU_LANES` envs, and the padded count: the whole reset then
-    runs every env through the CPU's vector loops, so an env's steady state
-    does not depend on the batch size (see `ops.window`)."""
-    out = pad_envs(n, *((d, 0) for d in draws))
-    return out, out[0].shape[0]
-
-
-def unpad(state, obs, n: int, n_pad: int):
-    """The first ``n`` envs of a reset made on ``n_pad`` (`padded_draws`):
-    (state, obs)."""
-    if n == n_pad:
-        return state, obs
-    return (tree_map(lambda x: x[:n].clone() if x.dim() else x, state),
-            obs[:n].clone())
-
-
 def reset(cfg: EnvConfig, n: int, generator: torch.Generator, mesh=None):
     """Full episode reset of n envs: sample scenarios, Newton steady-state
     init (SPEC §7/§9). ``generator`` lives on ``cfg.device``. Under a
@@ -380,7 +362,7 @@ def reset(cfg: EnvConfig, n: int, generator: torch.Generator, mesh=None):
     dtype, dev = cfg.dtype, cfg.device
     sc = cfg.scen
     n_out = n
-    (base, jit, ev), n = padded_draws(n, *(
+    (base, jit, ev), n = pad_draws(n, *(
         _rand(cfg, (n, k), generator, mesh) for k in (2, 2, N_EVENT_DRAWS)))
     s0 = sc.s0_lo + (sc.s0_hi - sc.s0_lo) * base[:, 0]
     tc0 = sc.tc_lo + (sc.tc_hi - sc.tc_lo) * base[:, 1]
@@ -402,7 +384,7 @@ def reset(cfg: EnvConfig, n: int, generator: torch.Generator, mesh=None):
         obs0=torch.zeros(n, OBS_DIM, dtype=dtype, device=dev), ppv0=g.p_pv,
     )
     obs = _obs(cfg, st, g, exog0, zeros)
-    return unpad(replace(st, obs0=obs), obs, n_out, n)
+    return unpad_reset(replace(st, obs0=obs), obs, n_out, n)
 
 
 def event_draws(cfg: EnvConfig, n: int, generator: torch.Generator,

@@ -41,7 +41,8 @@ from pvderx_torch.env.vector import autoreset, rollout_with
 from pvderx_torch.ode import newton_solve
 from pvderx_torch.ode.implicit import WINDOWS as IMPLICIT_WINDOWS
 from pvderx_torch.ops.window import (
-    P_FIELDS, U_FIELDS, pack_struct, rk4_fleet_window_batch, unpack_struct)
+    P_FIELDS, U_FIELDS, pack_struct, pad_draws, rk4_fleet_window_batch,
+    unpack_struct, unpad_reset)
 from pvderx_torch.params import DERParams, Exog
 from pvderx_torch.physics import fleet, rhs_core
 from pvderx_torch.physics.xp import TorchXP, like
@@ -173,7 +174,7 @@ def reset(fc: FleetConfig, n: int, generator: torch.Generator, mesh=None):
     sc = cfg.scen
     rand = partial(core._rand, cfg, generator=generator, mesh=mesh)
     n_out = n
-    (base, shade, jit, ev), n = core.padded_draws(n, *(
+    (base, shade, jit, ev), n = pad_draws(n, *(
         rand((n, k)) for k in (2, m, 2, core.N_EVENT_DRAWS)))
     s0 = sc.s0_lo + (sc.s0_hi - sc.s0_lo) * base[:, 0]
     tc0 = sc.tc_lo + (sc.tc_hi - sc.tc_lo) * base[:, 1]
@@ -208,7 +209,7 @@ def reset(fc: FleetConfig, n: int, generator: torch.Generator, mesh=None):
         ppv0=g.p_pv,
     )
     obs = _obs(fc, st, g, fu, t0)
-    return core.unpad(replace(st, obs0=obs), obs, n_out, n)
+    return unpad_reset(replace(st, obs0=obs), obs, n_out, n)
 
 
 def _soft_reset(fc: FleetConfig, st: FleetState, uv):

@@ -154,19 +154,14 @@ def make_ppo(env_cfg, ppo: PPOConfig, hidden=(128, 128), dtype=torch.float32,
     M, A = api.n_units, api.n_actions
     make_net = functools.partial(ActorCritic, api.obs_dim, A * M, hidden, dtype)
 
-    def _draw(logits, generator):
-        if mesh is None:
-            return _categorical(logits, generator)
-        return _categorical(logits, generator, mesh)
-
     def _sample(logits, generator):
         """Actions and their joint log-prob from the (factored) head."""
         if M == 1:
-            a = _draw(logits, generator)
+            a = _categorical(logits, generator, mesh)
             logp = torch.log_softmax(logits, -1).gather(-1, a[:, None])[:, 0]
             return a, logp
         lg = logits.reshape(logits.shape[0], M, A)
-        a = _draw(lg, generator)                              # [N, M]
+        a = _categorical(lg, generator, mesh)                 # [N, M]
         lp = torch.log_softmax(lg, -1)
         return a, lp.gather(-1, a[..., None])[..., 0].sum(-1)
 

@@ -28,12 +28,17 @@ evaluated twice per substep (k2/k3 share the half-point, and the endpoint is
 the next substep's k1); Kahan-compensated accumulation in a fixed order.
 
 On the CPU the plain versions run the batch padded to a multiple of
-`CPU_LANES` envs (`pad_envs`): torch's CPU elementwise kernels run a vector
+`CPU_LANES` envs (`pad_envs`; a reset's draws by `pad_draws`, its state
+cut back by `unpad_reset`): torch's CPU elementwise kernels run a vector
 loop over whole blocks and a scalar loop over the rest, and the two can
 differ in the last bit (``pow`` with a scalar exponent). Padded, every env
 takes the vector loop, so an env's result does not depend on the batch
 size or on its place in the batch: W ranks stepping N/W envs each give the
-one-rank run's bits. (One thread per env on the card has no such effect.)
+one-rank run's bits. This holds with one intra-op thread (as
+`pvderx_torch.dist.launch --cpu` gives each rank): on several, torch splits
+an op of 32768 elements or more at offsets that need not be multiples of
+`CPU_LANES`, each chunk gets a scalar tail, and the batch size matters
+again. (One thread per env on the card has no such effect.)
 """
 from __future__ import annotations
 
@@ -41,6 +46,7 @@ import dataclasses
 
 import torch
 
+from pvderx_torch._struct import tree_map
 from pvderx_torch.params import DERParams, Exog
 from pvderx_torch.physics import fleet, rhs_core
 from pvderx_torch.physics.xp import like
@@ -92,6 +98,23 @@ def pad_envs(n: int, *tensors_axes):
     return [torch.cat([t, t.narrow(ax, n - 1, 1).expand(
         *(k if i == ax else d for i, d in enumerate(t.shape)))], ax)
         for t, ax in tensors_axes]
+
+
+def pad_draws(n: int, *draws):
+    """A reset's draws ([n, ...] each) padded like `pad_envs`, and the padded
+    count: the whole reset then runs every env through the CPU's vector
+    loops, so an env's steady state does not depend on the batch size."""
+    out = pad_envs(n, *((d, 0) for d in draws))
+    return out, out[0].shape[0]
+
+
+def unpad_reset(state, obs, n: int, n_pad: int):
+    """The first ``n`` envs of a reset made on ``n_pad`` (`pad_draws`):
+    (state, obs); 0-d fields stay whole."""
+    if n == n_pad:
+        return state, obs
+    return (tree_map(lambda x: x[:n].clone() if x.dim() else x, state),
+            obs[:n].clone())
 
 
 def _substep_constants(dt: float, n_sub: int):

@@ -350,3 +350,21 @@ def test_torch_chip_smoke_grad_and_examples_phases_run_on_the_cpu():
         ("gain_tuning", ["--iters", "1", "--windows", "1", "--n-sub", "40"],
          {"k1": 0, "k2": 0})))
     assert all(v["rc"] == 0 for v in ex.values()) and len(ex) == 4
+
+
+def test_torch_chip_smoke_prefetched_truth_is_the_inline_one():
+    """A truth started on a process pool (`prefetch_truths`, as `main`
+    does while the kernels build) is the one computed in this process."""
+    import concurrent.futures
+    import multiprocessing
+
+    import chip_smoke as cs
+
+    key = ("gate", "10", 3)
+    with concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        cs.prefetch_truths(pool, [key])
+        got, seconds = cs._truth(*key)
+    want, _ = cs._truth_job(key)
+    assert got.shape == want.shape == (4, want.shape[1]) and seconds > 0
+    np.testing.assert_array_equal(got, want)
