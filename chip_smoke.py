@@ -60,9 +60,10 @@ Phases, one line each (a failing phase raises, so the script exits non-zero):
               f32, n_sub=64, 32768 envs, zero-action policy): reset,
               warm-up, best of two 600-step chunks, the linearity check; K3
               launches == steps, obs/reward finite, episodes done, y_lo
-              alive; K3, K1 and the plain df32 version ms per call at the
-              same inputs and n_sub; K3 at preset 50 (three-phase), 32768
-              envs, n_sub=64, on `df_inputs`.
+              alive; K3 and K1 ms per call at the same inputs and n_sub, the
+              plain df32 version's from df_kernel's 32768-env case (the same
+              shapes and n_sub); K3 at preset 50 (three-phase), 32768 envs,
+              n_sub=64, on `df_inputs`.
 14. ppo_main — PPO (`pvderx_torch.learn`) on the single-DER env at the
               reference's learner benchmark config (preset 10, f32,
               n_sub=64, 16384 envs, rollout 16, 4 epochs x 4 minibatches,
@@ -130,7 +131,9 @@ Phases, one line each (a failing phase raises, so the script exits non-zero):
               and at its default 60 where that scales to <= 120 s.
 28. examples — the four `pvderx_torch.examples` as subprocesses, started
               together: each exits 0; K1 / K2 launches as their arguments
-              give.
+              give. Phase 34's examples run beside them, and the world-2
+              and world-4 ranks of phases 29-33 start then, each job held
+              at a gate until its inputs are written.
 
 29-34. the distributed layer (`pvderx_torch.dist`, `run_dist`): world 1 in
               this process on NCCL, world 2 and world 4 as gloo ranks that
@@ -172,7 +175,12 @@ Phases, one line each (a failing phase raises, so the script exits non-zero):
     dist_examples — `train_ppo --tp 2`, `train_dqn` and `train_sac` as 2 ranks
               each, started together: each exits 0 and launches K1 as its
               arguments give on every rank.
-              Then one line with the seconds of each part.
+              Then one line with the seconds of each part (a job's from
+              its gate; the examples' from their start, beside phase 28).
+
+Every line carries `at_s`, the seconds since the script started. The
+float64 LSODA truths of phases 4, 8, 12, 19 and 22 run in worker processes
+from the start (`prefetch_truths`), beside the build and the first phases.
 
 Then the kernel table as one JSON line (each kernel with its bound and its
 lane-issue bound from `pvderx_torch.diag.roofline`: operations / (132 SMs *
@@ -237,15 +245,12 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def _time_ms(fn, reps: int, device, warm: bool = True) -> float:
+def _time_ms(fn, reps: int, device) -> float:
     """Device time per call by CUDA events around ``reps`` calls, each end
-    synced by `diag.profiler.force_sync` of a call's output; ``warm`` runs
-    one untimed call first (a caller whose function already ran at these
-    shapes may skip it)."""
+    synced by `diag.profiler.force_sync` of a call's output."""
     from pvderx_torch.diag.profiler import force_sync
 
-    if warm:
-        force_sync(fn())
+    force_sync(fn())
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -254,6 +259,19 @@ def _time_ms(fn, reps: int, device, warm: bool = True) -> float:
     end.record()
     force_sync(out)
     return start.elapsed_time(end) / reps
+
+
+def _timed(fn, device):
+    """(fn(), its device ms by CUDA events around the one call; None off
+    the card)."""
+    if torch.device(device).type != "cuda":
+        return fn(), None
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def window_inputs(preset, n, seed, device, p_over=None, u_over=None,
@@ -738,20 +756,26 @@ def check_df_kernel(device, cases=DF_CASES, n_sub=DF_CHECK_SUB,
                     main_sub=N_SUB):
     """Phase 10: the df32 kernel vs its plain version on every case, at
     n_sub substeps of the main path's h (the main path's case at main_sub).
-    Returns the max error."""
+    Returns (the max error, the plain version's ms on the main path's case
+    by CUDA events, None off the card): that call is the plain df32
+    window at the main path's shapes, tens of seconds, so df_main's
+    `plain_window_ms` is this reading and not a second run."""
     from pvderx_torch.ops.dualfloat import (
         rk4_window_batch_df, rk4_window_batch_df_ref)
 
     cuda = torch.device(device).type == "cuda"
-    worst = 0.0
+    worst, plain_ms = 0.0, None
     for i, (name, preset, n, kw) in enumerate(cases):
         n_ph, *args = df_inputs(preset, n, i, device, **kw)
-        sub = main_sub if name == "preset10_main" else n_sub
+        main = name == "preset10_main"
+        sub = main_sub if main else n_sub
         wkw = dict(n_ph=n_ph, n_sub=sub, dt=DT * sub / N_SUB)
         before = rk4_window_batch_df.launches
         hi, lo = rk4_window_batch_df(*args, **wkw)
         moved = rk4_window_batch_df.launches - before
-        ref_hi, ref_lo = rk4_window_batch_df_ref(*args, **wkw)
+        (ref_hi, ref_lo), ms = _timed(
+            lambda: rk4_window_batch_df_ref(*args, **wkw), device)
+        plain_ms = ms if main else plain_ms
         _sync(device)
         err = _df_err(hi, lo, ref_hi, ref_lo)
         normal = _lo_normalized(hi, lo)
@@ -764,7 +788,7 @@ def check_df_kernel(device, cases=DF_CASES, n_sub=DF_CHECK_SUB,
         if cuda and moved != 1:
             raise AssertionError(f"df32 launch counter moved by {moved}, not 1")
         worst = max(worst, err)
-    return worst
+    return worst, plain_ms
 
 
 def check_df_f64(device, cases=KERNEL_CASES, n=4, n_sub=N_SUB):
@@ -847,13 +871,14 @@ def check_df_gate(device, cases=DF_GATE_CASES, n_steps=120, n=128):
 
 
 def run_df_main(device, card, n_envs=N_ENVS, n_sub=N_SUB, warm=WARM_STEPS,
-                chunk=CHUNK_STEPS):
-    """Phase 13: the df32 tier at full width through the df32 kernel."""
+                chunk=CHUNK_STEPS, plain_ms=None):
+    """Phase 13: the df32 tier at full width through the df32 kernel;
+    ``plain_ms``: the plain df32 window's ms at these shapes (df_kernel's
+    reading)."""
     from pvderx_torch.env import core, make_batch_fns_df, make_env_config
     from pvderx_torch.env import rollout_df
     from pvderx_torch.diag.roofline import window_bound_ms
-    from pvderx_torch.ops.dualfloat import (
-        rk4_window_batch_df, rk4_window_batch_df_ref)
+    from pvderx_torch.ops.dualfloat import rk4_window_batch_df
     from pvderx_torch.ops.window import (
         P_FIELDS, U_FIELDS, pack_struct, rk4_window_batch)
 
@@ -881,22 +906,18 @@ def run_df_main(device, card, n_envs=N_ENVS, n_sub=N_SUB, warm=WARM_STEPS,
     state, y_lo = carry
     lo_max = float(y_lo.abs().max())
 
-    # K3, K1 on hi and the plain df32 version alone at the main path's
-    # shapes and n_sub
+    # K3 and K1 on hi alone at the main path's shapes and n_sub
     t_win, exog, _, _ = core._pre_window(
         cfg, state, torch.zeros(n_envs, dtype=torch.int64, device=device))
     pk, uk = pack_struct(state.der, P_FIELDS), pack_struct(exog, U_FIELDS)
     kw = dict(n_ph=cfg.der.n_ph, n_sub=n_sub, dt=cfg.dt_ctrl)
-    kernel_ms = k1_ms = plain_ms = None
+    kernel_ms = k1_ms = None
     if cuda:
         kernel_ms = _time_ms(
             lambda: rk4_window_batch_df(state.y, y_lo, t_win, pk, uk, **kw),
             10, device)
         k1_ms = _time_ms(lambda: rk4_window_batch(state.y, t_win, pk, uk, **kw),
                          20, device)
-        # the plain df32 version already ran at these shapes in df_kernel
-        plain_ms = _time_ms(lambda: rk4_window_batch_df_ref(
-            state.y, y_lo, t_win, pk, uk, **kw), 1, device, warm=False)
     # K3 three-phase at the same width and n_sub
     k3_50_ms = None
     if cuda:
@@ -2404,9 +2425,11 @@ def _leg_ckpt_tp(workdir, mesh, s):
                 params_bitwise=same, wrong_size_error=wrong)
 
 
-def dist_worker(workdir: str, legs) -> int:
-    """One rank of the dist phases: joins the launcher's group, runs the
-    legs in order, writes each leg's JSON to ``WORKDIR/LEG-rank{r}.json``."""
+def dist_worker(workdir: str, gate: str, legs) -> int:
+    """One rank of the dist phases: joins the launcher's group, waits for
+    the file ``WORKDIR/GATE`` (`run_dist` writes it once the inputs of the
+    legs are there), runs the legs in order, writes each leg's JSON to
+    ``WORKDIR/LEG-rank{r}.json``."""
     import os
 
     from pvderx_torch import dist
@@ -2416,6 +2439,9 @@ def dist_worker(workdir: str, legs) -> int:
     device = s.pop("device")
     dist.init_multihost()
     mesh = dist.make_mesh(device=device)
+    torch.zeros(1, device=mesh.device)         # the card's context, if any
+    while not os.path.exists(os.path.join(workdir, gate)):
+        time.sleep(0.05)
     rank = torch.distributed.get_rank()
     ppo_runner = None
     for leg in legs:
@@ -2469,6 +2495,56 @@ def _launch_ranks(nproc, args, root, cpu, timeout):
     return subprocess.Popen(cmd + (["--cpu"] if cpu else []) + args, cwd=root,
                             env=env, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True)
+
+
+# the legs of the two gloo jobs, by world size
+DIST_LEGS = {2: ["env", "fleet", "df32", "ppo", "fleet_ppo", "dqn", "sac",
+                 "checkpoint", "tp12"],
+             4: ["tp22", "ckpt_tp"]}
+
+
+def start_dist_ranks(device, s=DIST, timeout=900):
+    """Start the world-2 and world-4 jobs of phases 29-33 (gloo ranks of
+    `pvderx_torch.dist.launch`), each held at a gate after joining its
+    group, so that their start-up (imports, the card's context, the
+    rendezvous) overlaps what the caller runs next; `run_dist` opens each
+    gate once the job's inputs are written. Returns the jobs; the caller
+    ends them with `stop_dist_ranks`."""
+    import os
+    import tempfile
+
+    cuda = torch.device(device).type == "cuda"
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_dist_")
+    with open(os.path.join(tmp.name, "sizes.json"), "w") as fh:
+        json.dump(dict(s, device=device), fh)
+    jobs = dict(tmp=tmp, workdir=tmp.name, procs={})
+    try:
+        for w, legs in DIST_LEGS.items():
+            jobs["procs"][w] = _launch_ranks(
+                w, ["-m", "chip_smoke", "--dist-worker", tmp.name,
+                    f"gate-w{w}", *legs], root, not cuda, timeout)
+    except BaseException:
+        stop_dist_ranks(jobs)
+        raise
+    return jobs
+
+
+def stop_dist_ranks(jobs) -> None:
+    stop_launches(list(jobs["procs"].values()))
+    jobs["tmp"].cleanup()
+
+
+def _run_job(jobs, w, timeout):
+    """Open world ``w``'s gate and wait for its job: (return code, stderr,
+    seconds from the gate)."""
+    import os
+
+    t = time.perf_counter()
+    open(os.path.join(jobs["workdir"], f"gate-w{w}"), "w").close()
+    p = jobs["procs"][w]
+    _, err = p.communicate(timeout=timeout + 60)
+    return p.returncode, err, time.perf_counter() - t
 
 
 def start_dist_examples(device, s=DIST, timeout=900):
@@ -2573,20 +2649,27 @@ def dist_launches(out) -> dict:
                "dist_df32_w2": per(r2["df32"])}}
 
 
-def run_dist(device, card, s=DIST, timeout=900, examples=None):
+def run_dist(device, card, s=DIST, timeout=900, ranks=None, examples=None):
     """Phases 29-34 (the module docstring): world 1 in this process on the
-    card's backend (NCCL), world 2 and world 4 as gloo ranks sharing the
-    card (`pvderx_torch.dist.launch`), and the three training examples as
-    2 ranks each, started together: ``examples``, what
-    `finish_dist_examples` returned if the caller ran them, else here, after
-    world 4. Returns the readings; raises on the first failed check once
-    every line has printed."""
-    import os
+    card's backend (NCCL), then world 2 and world 4 as gloo ranks sharing
+    the card (`pvderx_torch.dist.launch`): ``ranks``, what
+    `start_dist_ranks` returned if the caller started them, else started
+    here; then the three training examples as 2 ranks each, started
+    together: ``examples``, what `finish_dist_examples` returned if the
+    caller ran them, else here. Returns the readings; raises on the first
+    failed check once every line has printed."""
+    jobs = ranks or start_dist_ranks(device, s, timeout)
+    try:
+        return _run_dist(device, card, s, timeout, jobs, examples)
+    finally:
+        stop_dist_ranks(jobs)
+
+
+def _run_dist(device, card, s, timeout, jobs, examples):
     import re
-    import tempfile
 
     cuda = torch.device(device).type == "cuda"
-    root = os.path.dirname(os.path.abspath(__file__))
+    workdir = jobs["workdir"]
     t_all = time.perf_counter()
     fails = []
 
@@ -2594,37 +2677,20 @@ def run_dist(device, card, s=DIST, timeout=900, examples=None):
         if not ok:
             fails.append(what)
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as workdir:
-        with open(os.path.join(workdir, "sizes.json"), "w") as fh:
-            json.dump(dict(s, device=device), fh)
-        t = time.perf_counter()
-        w1 = _dist_world1(device, card, s, workdir,
-                          "nccl" if cuda else "gloo")
-        w1_s = time.perf_counter() - t
-        legs2 = ["env", "fleet", "df32", "ppo", "fleet_ppo", "dqn", "sac",
-                 "checkpoint", "tp12"]
-        legs4 = ["tp22", "ckpt_tp"]
-        t = time.perf_counter()
-        p2 = _launch_ranks(2, ["-m", "chip_smoke", "--dist-worker", workdir,
-                               *legs2], root, not cuda, timeout)
-        o2 = p2.communicate(timeout=timeout + 60)
-        w2_s = time.perf_counter() - t
-        if p2.returncode != 0:
-            _print_partial(card, w1, workdir, legs2, 2)
-            raise AssertionError(f"dist world 2 failed (rc {p2.returncode}):"
-                                 f"\n{o2[1][-3000:]}")
-        t = time.perf_counter()
-        p4 = _launch_ranks(4, ["-m", "chip_smoke", "--dist-worker", workdir,
-                               *legs4], root, not cuda, timeout)
-        o4 = p4.communicate(timeout=timeout + 60)
-        w4_s = time.perf_counter() - t
-        if p4.returncode != 0:
-            _print_partial(card, w1, workdir, legs4, 4)
-            raise AssertionError(f"dist world 4 failed (rc {p4.returncode}):"
-                                 f"\n{o4[1][-3000:]}")
-        r2, r4 = _read_legs(workdir, legs2, 2), _read_legs(workdir, legs4, 4)
-        ex, ex_s = examples or finish_dist_examples(
-            start_dist_examples(device, s, timeout), timeout)
+    t = time.perf_counter()
+    w1 = _dist_world1(device, card, s, workdir, "nccl" if cuda else "gloo")
+    w1_s = time.perf_counter() - t
+    secs = {}
+    for w, legs in DIST_LEGS.items():
+        rc, err, secs[w] = _run_job(jobs, w, timeout)
+        if rc != 0:
+            _print_partial(card, w1, workdir, legs, w)
+            raise AssertionError(f"dist world {w} failed (rc {rc}):"
+                                 f"\n{err[-3000:]}")
+    r2, r4 = (_read_legs(workdir, DIST_LEGS[w], w) for w in (2, 4))
+    w2_s, w4_s = secs[2], secs[4]
+    ex, ex_s = examples or finish_dist_examples(
+        start_dist_examples(device, s, timeout), timeout)
 
     # -- dist_env -------------------------------------------------------------
     for kind in ("env", "fleet", "df32"):
@@ -2713,6 +2779,26 @@ def run_dist(device, card, s=DIST, timeout=900, examples=None):
     return dict(w1=w1, r2=r2, r4=r4, examples=launches, seconds=seconds)
 
 
+def run_examples_and_dist(device, card):
+    """Phases 28-34. Phase 34's examples run beside phase 28's (neither is
+    timed), and the gloo jobs of phases 29-33 start then too, held at
+    their gates until world 1 has run. Returns (phase 28's readings, the
+    dist readings)."""
+    ranks = start_dist_ranks(device)
+    try:
+        started = start_dist_examples(device)
+        try:
+            examples_out = run_examples(device, card)
+        except BaseException:
+            stop_launches([p for _, _, p in started[1]])
+            raise
+        dist_ex = finish_dist_examples(started)
+        return examples_out, run_dist(device, card, ranks=ranks,
+                                      examples=dist_ex)
+    finally:
+        stop_dist_ranks(ranks)
+
+
 def kernel_name(mangled: str) -> str:
     """`window_kernel<3>` and the like for a window kernel's mangled or
     demangled name; any other name as it is."""
@@ -2790,10 +2876,10 @@ def run_phases(device, kind, card, clock_mhz) -> int:
     fleet_err = check_fleet_kernel(device)
     check_fleet_gate(device)
     fleet_out = run_fleet_main(device, card)
-    df_err = check_df_kernel(device)
+    df_err, df_plain_ms = check_df_kernel(device)
     check_df_f64(device)
     check_df_gate(device)
-    df_out = run_df_main(device, card)
+    df_out = run_df_main(device, card, plain_ms=df_plain_ms)
     ppo_out = run_ppo_main(device, card)
     fleet_ppo_out = run_fleet_ppo(device, card)
     dqn_out = run_dqn_main(device, card)
@@ -2810,15 +2896,7 @@ def run_phases(device, kind, card, clock_mhz) -> int:
     debug_out = run_diag_debug(device, card)
     ckpt_out = run_diag_checkpoint(device, card)
     run_grad(device, card)
-    # phase 34's examples run beside phase 28's (neither is timed)
-    started = start_dist_examples(device)
-    try:
-        examples_out = run_examples(device, card)
-    except BaseException:
-        stop_launches([p for _, _, p in started[1]])
-        raise
-    dist_ex = finish_dist_examples(started)
-    dist_out = run_dist(device, card, examples=dist_ex)
+    examples_out, dist_out = run_examples_and_dist(device, card)
     dl = dist_launches(dist_out)
 
     # the bounds at the main path's shapes (diag.roofline), the lane-issue
@@ -2920,7 +2998,7 @@ def run_phases(device, kind, card, clock_mhz) -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dist-worker"]:
-        sys.exit(dist_worker(sys.argv[2], sys.argv[3:]))
+        sys.exit(dist_worker(sys.argv[2], sys.argv[3], sys.argv[4:]))
     if sys.argv[1:2] == ["--example-rank"]:
         sys.exit(example_rank(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

@@ -154,14 +154,22 @@ def make_ppo(env_cfg, ppo: PPOConfig, hidden=(128, 128), dtype=torch.float32,
     M, A = api.n_units, api.n_actions
     make_net = functools.partial(ActorCritic, api.obs_dim, A * M, hidden, dtype)
 
+    def _draw(logits, generator):
+        # un-meshed, `_categorical` is called as (logits, generator) only: a
+        # caller may stand a two-argument sampler in for it (the reference
+        # twin in tests/test_torch_learn_ppo.py takes out the randomness so)
+        if mesh is None:
+            return _categorical(logits, generator)
+        return _categorical(logits, generator, mesh)
+
     def _sample(logits, generator):
         """Actions and their joint log-prob from the (factored) head."""
         if M == 1:
-            a = _categorical(logits, generator, mesh)
+            a = _draw(logits, generator)
             logp = torch.log_softmax(logits, -1).gather(-1, a[:, None])[:, 0]
             return a, logp
         lg = logits.reshape(logits.shape[0], M, A)
-        a = _categorical(lg, generator, mesh)                 # [N, M]
+        a = _draw(lg, generator)                              # [N, M]
         lp = torch.log_softmax(lg, -1)
         return a, lp.gather(-1, a[..., None])[..., 0].sum(-1)
 
