@@ -177,15 +177,34 @@ Phases, one line each (a failing phase raises, so the script exits non-zero):
               arguments give on every rank.
               Then one line with the seconds of each part (a job's from
               its gate; the examples' from their start, beside phase 28).
+35. notebooks — once phases 28-34 have ended and their ranks have stopped:
+              the demo notebooks' compute cells
+              (`python -m pvderx_torch.examples.notebooks.run_cells`, a
+              subprocess) at the reference notebooks' sizes, the standalone
+              simulation (preset 50, 12 s, 720 windows) and the training
+              notebook (a 120-step gym rollout, DQN 60 updates, PPO 60 plus
+              a 320-step random baseline, SAC 300 plus its baseline, the
+              export): every cell's K1 launches == its env steps, each
+              notebook's steps as its sizes give, the learners' metrics
+              finite, the exported numpy policy's actions equal to the torch
+              net's argmax on the same observations. The plot cells do not
+              run.
 
 Every line carries `at_s`, the seconds since the script started. The
 float64 LSODA truths of phases 4, 8, 12, 19 and 22 run in worker processes
 from the start (`prefetch_truths`), beside the build and the first phases.
 
-Then the kernel table as one JSON line (each kernel with its bound and its
-lane-issue bound from `pvderx_torch.diag.roofline`: operations / (132 SMs *
-128 FP32 lanes * max SM clock), and the launches of the learner phases and
-of phases 19-34), the card line, and the device line.
+A phase that fails ends the run: one line ``[failed] {"phase": ...,
+"error": "<type>: <message>", "at_s": ...}`` names it (the phase begun last,
+`begin`), the traceback goes to stderr, and the script exits 1. A
+subprocess of phases 28-35 that outlives its timeout is stopped, and the
+error names the phase, the job and the end of its stderr (`wait_for`).
+
+Then `[total]`, the kernel table as one JSON line (each kernel with its
+bound and its lane-issue bound from `pvderx_torch.diag.roofline`:
+operations / (132 SMs * 128 FP32 lanes * max SM clock), and the launches of
+the learner phases and of phases 19-35), the card line, and the device
+line.
 Needs one CUDA card; imports torch, numpy, scipy and pvderx_torch only
 (gymnasium if installed).
 """
@@ -224,6 +243,13 @@ DT = 1.0 / 60.0
 
 
 _T0 = time.perf_counter()
+# the phase begun last (`begin`), which a failure names
+_CURRENT = {"phase": "device"}
+
+
+def begin(name: str) -> None:
+    """Record that phase ``name`` starts: a failure from here on names it."""
+    _CURRENT["phase"] = name
 
 
 def phase(name: str, **kv):
@@ -231,6 +257,41 @@ def phase(name: str, **kv):
     started, so consecutive lines give each phase's share of the run."""
     kv["at_s"] = time.perf_counter() - _T0
     print(f"[{name}] " + json.dumps(kv), flush=True)
+
+
+def failed(exc: BaseException) -> None:
+    """The one stdout line of a failed run, naming the phase begun last;
+    the traceback goes to stderr."""
+    import traceback
+
+    traceback.print_exception(exc)
+    sys.stderr.flush()
+    print("[failed] " + json.dumps({
+        "phase": _CURRENT["phase"],
+        "error": f"{type(exc).__name__}: {exc}"[:4000],
+        "at_s": time.perf_counter() - _T0}), flush=True)
+
+
+def wait_for(proc, job: str, timeout: float):
+    """``proc.communicate(timeout=...)``: (stdout, stderr). A process that
+    outlives ``timeout`` is interrupted (a rank launcher then stops its
+    ranks), killed if it lingers, and a `TimeoutError` names the current
+    phase, the job and the end of its stderr."""
+    import signal
+
+    try:
+        return proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.send_signal(signal.SIGINT)
+        try:
+            _, err = proc.communicate(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            _, err = proc.communicate()
+        raise TimeoutError(
+            f"phase {_CURRENT['phase']}: {job} did not end within "
+            f"{timeout:g} s; the end of its stderr:\n{(err or '')[-3000:]}"
+        ) from None
 
 
 def _smi(query: str) -> str:
@@ -1982,7 +2043,7 @@ def run_examples(device, card, examples=EXAMPLES, timeout=600):
             procs[name] = subprocess.Popen(cmd, cwd=root, env=env,
                                            stdout=subprocess.PIPE,
                                            stderr=subprocess.PIPE, text=True)
-        results = {name: p.communicate(timeout=timeout)
+        results = {name: wait_for(p, f"example {name}", timeout)
                    for name, p in procs.items()}
     finally:
         for p in procs.values():
@@ -2543,7 +2604,7 @@ def _run_job(jobs, w, timeout):
     t = time.perf_counter()
     open(os.path.join(jobs["workdir"], f"gate-w{w}"), "w").close()
     p = jobs["procs"][w]
-    _, err = p.communicate(timeout=timeout + 60)
+    _, err = wait_for(p, f"dist world {w} ranks", timeout + 60)
     return p.returncode, err, time.perf_counter() - t
 
 
@@ -2575,7 +2636,8 @@ def finish_dist_examples(started, timeout=900):
     return code, (stdout, stderr))}, seconds since their start)."""
     t, procs = started
     try:
-        ex = {name: (want, p.communicate(timeout=timeout + 60))
+        ex = {name: (want, wait_for(p, f"dist example {name}",
+                                    timeout + 60))
               for name, want, p in procs}
     finally:
         stop_launches([p for _, _, p in procs])
@@ -2792,11 +2854,65 @@ def run_examples_and_dist(device, card):
         except BaseException:
             stop_launches([p for _, _, p in started[1]])
             raise
+        begin("dist_examples")
         dist_ex = finish_dist_examples(started)
+        begin("dist")
         return examples_out, run_dist(device, card, ranks=ranks,
                                       examples=dist_ex)
     finally:
         stop_dist_ranks(ranks)
+
+
+def run_notebooks(device, card, tiny=False, timeout=600):
+    """Phase 35: the demo notebooks' compute cells through
+    `pvderx_torch.examples.notebooks.run_cells` as a subprocess (``--tiny``
+    at `build_notebooks.TINY`'s sizes, for a CPU rehearsal). Every cell's
+    K1 launches must equal its env steps on the card (the CPU's plain window
+    launches none), each notebook take the steps its sizes give and pass its
+    checks. Returns {notebook: its `[notebook]` line}."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    cuda = torch.device(device).type == "cuda"
+    t = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "pvderx_torch.examples.notebooks.run_cells",
+         "--device", device] + (["--tiny"] if tiny else []),
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    stdout, stderr = wait_for(proc, "run_cells", timeout)
+    lines = lambda tag: [json.loads(ln[len(tag) + 3:])
+                         for ln in stdout.splitlines()
+                         if ln.startswith(f"[{tag}] ")]
+    cells, books = lines("cell"), {b["notebook"]: b for b in lines("notebook")}
+    fails = []
+    for name in ("standalone_simulation", "train_rl"):
+        b = books.get(name)
+        if b is None:
+            fails.append(f"{name}: no [notebook] line")
+            continue
+        mine = [c for c in cells if c["notebook"] == name]
+        phase("notebooks", card=card, **b, cells=[
+            {k: c[k] for k in ("cell", "seconds", "k1_launches",
+                               "env_steps")} for c in mine])
+        if not b["checks"]["ok"]:
+            fails.append(f"{name}: checks {b['checks']}")
+        if b["env_steps"] != b["want_env_steps"]:
+            fails.append(f"{name}: {b['env_steps']} env steps, want "
+                         f"{b['want_env_steps']}")
+        for c in mine:
+            if cuda and c["k1_launches"] != c["env_steps"]:
+                fails.append(f"{name} cell {c['cell']}: K1 launches "
+                             f"{c['k1_launches']} != env steps "
+                             f"{c['env_steps']}")
+    phase("notebooks", card=card, rc=proc.returncode,
+          seconds=time.perf_counter() - t)
+    if proc.returncode != 0 or fails:
+        raise AssertionError(f"notebooks (rc {proc.returncode}): "
+                             + "; ".join(fails) + f"\n{stderr[-3000:]}")
+    return books
 
 
 def kernel_name(mangled: str) -> str:
@@ -2849,55 +2965,89 @@ def main() -> int:
     phase("device", torch_device=kind, nvidia_smi=card,
           max_sm_clock_mhz=clock_mhz, torch=torch.__version__,
           cuda=torch.version.cuda)
-    with concurrent.futures.ProcessPoolExecutor(
-            len(TRUTH_KEYS),
-            mp_context=multiprocessing.get_context("spawn")) as pool:
-        try:
-            prefetch_truths(pool)
-            return run_phases(device, kind, card, clock_mhz)
-        finally:
-            pool.shutdown(cancel_futures=True)
+    try:
+        with concurrent.futures.ProcessPoolExecutor(
+                len(TRUTH_KEYS),
+                mp_context=multiprocessing.get_context("spawn")) as pool:
+            try:
+                prefetch_truths(pool)
+                return run_phases(device, kind, card, clock_mhz)
+            finally:
+                pool.shutdown(cancel_futures=True)
+    except Exception as exc:       # the run's boundary: name the phase, stop
+        failed(exc)
+        return 1
 
 
 def run_phases(device, kind, card, clock_mhz) -> int:
-    """Phases 2-34, the kernels line, the card line and the last line."""
+    """Phases 2-35, the kernels line, the card line and the last line."""
     from pvderx_torch.diag import roofline
     from pvderx_torch.ops import _build
 
+    begin("build")
     t = time.perf_counter()
     _build.build()
     _build.load()
     phase("build", seconds=time.perf_counter() - t,
           ptxas=ptxas_summary(_build.ptxas_report()))
 
+    begin("kernel")
     kernel_err = check_kernel(device)
+    begin("gate")
     check_gate(device)
+    begin("main")
     main_out = run_main(device, card)
+    begin("fleet_kernel")
     fleet_err = check_fleet_kernel(device)
+    begin("fleet_gate")
     check_fleet_gate(device)
+    begin("fleet_main")
     fleet_out = run_fleet_main(device, card)
+    begin("df_kernel")
     df_err, df_plain_ms = check_df_kernel(device)
+    begin("df_f64")
     check_df_f64(device)
+    begin("df_gate")
     check_df_gate(device)
+    begin("df_main")
     df_out = run_df_main(device, card, plain_ms=df_plain_ms)
+    begin("ppo_main")
     ppo_out = run_ppo_main(device, card)
+    begin("fleet_ppo")
     fleet_ppo_out = run_fleet_ppo(device, card)
+    begin("dqn_main")
     dqn_out = run_dqn_main(device, card)
+    begin("sac_main")
     sac_out = run_sac_main(device, card)
+    begin("learn_gates")
     run_learn_gates(device, card)
+    begin("implicit")
     check_implicit_window(device)
     implicit_out = run_implicit_env(device, card)
+    begin("fleet_implicit")
     fleet_implicit_out = run_fleet_implicit(device, card)
+    begin("gym")
     gym_out = run_gym(device, card, main_rate=main_out["env_steps_per_s"])
+    begin("sim")
     sim_out = run_sim(device, card)
+    begin("config")
     config_out = run_config(device, card)
+    begin("diag_profiler")
     prof_out = run_diag_profiler(device, card,
                                  main_rate=main_out["env_steps_per_s"])
+    begin("diag_debug")
     debug_out = run_diag_debug(device, card)
+    begin("diag_checkpoint")
     ckpt_out = run_diag_checkpoint(device, card)
+    begin("grad")
     run_grad(device, card)
+    begin("examples")
     examples_out, dist_out = run_examples_and_dist(device, card)
     dl = dist_launches(dist_out)
+    begin("notebooks")
+    notebooks_out = run_notebooks(device, card)
+    begin("kernels_line")
+    phase("total", seconds=time.perf_counter() - _T0)
 
     # the bounds at the main path's shapes (diag.roofline), the lane-issue
     # floor at the card's max SM clock
@@ -2944,7 +3094,9 @@ def run_phases(device, kind, card, clock_mhz) -> int:
             "diag_checkpoint": {k: v["launches"]
                                 for k, v in ckpt_out.items()},
             "grad_guard": debug_out["grad_guard"]["k1"]["launches"],
-            "examples": ex("k1"), **dl["k1"]},
+            "examples": ex("k1"), **dl["k1"],
+            "notebooks": {k: v["k1_launches"]
+                          for k, v in notebooks_out.items()}},
     }, {
         "name": "rk4_fleet_window",
         "route": "cuda",

@@ -9,6 +9,7 @@
     python3 profile_torch_step.py --outputs FILE [--against OTHER]
     python3 profile_torch_step.py --gate-window SEED [SEED ...]
     python3 profile_torch_step.py --jacobian cuda|cpu
+    python3 profile_torch_step.py --trace-edges REPS
 
 Runs the main path (preset 10, f32, n_sub=64, 32768 envs, zero-action policy,
 autoreset), with ``--fleet`` the fleet path (preset 10, f32, n_sub=64,
@@ -53,6 +54,11 @@ the gate's CPU twin runs), both against that plain window in float64. One
 JSON line per seed: the windows checked, the max abs K2 - plain (f32)
 difference, each one's max abs error against float64, and the gate's
 trained / random / gain.
+
+``--trace-edges REPS`` traces three main-path steps REPS times with
+`torch.profiler` alone and REPS times with `diag.profiler.trace` (idle
+guards around the block), in turns, and counts per way the kernel launches
+whose kernel event the trace dropped, and where in the block they were.
 
 ``--jacobian DEVICE`` times the two ways to take the Jacobian of the
 single-DER RHS (preset 10, float32, a reset state on DEVICE, the sag's
@@ -381,6 +387,82 @@ def jacobian_times(device: str) -> int:
     return 0
 
 
+def _launch_and_kernel_events(events):
+    """(kernel-launch runtime events, kernel events) of a chrome trace, each
+    by its correlation id."""
+    launches = {e["args"]["correlation"]: e for e in events
+                if e.get("cat") == "cuda_runtime" and "Launch" in e.get(
+                    "name", "") and "correlation" in e.get("args", {})}
+    kernels = {e["args"]["correlation"]: e for e in events
+               if e.get("cat") == "kernel" and "correlation" in e.get(
+                   "args", {})}
+    return launches, kernels
+
+
+def trace_edges(card: str, reps: int) -> int:
+    """``--trace-edges REPS``: whether a `torch.profiler` trace keeps every
+    kernel of a block that starts right after the profiler does. Three
+    main-path steps (32768 envs, n_sub=64) are traced ``reps`` times each
+    way, in turns: "plain", `torch.profiler.profile` around the steps, and
+    "guarded", `diag.profiler.trace` (the steps between idle guards). Per
+    trace, a kernel launch (a runtime launch event) whose kernel event is
+    missing is dropped; one JSON line per way: the traces with a drop, the
+    drops, how late the latest dropped launch came after the first launch
+    (ms), K1's traced count per trace (3 launched)."""
+    from torch.profiler import tensorboard_trace_handler
+
+    from pvderx_torch.diag.profiler import trace, trace_events
+    from pvderx_torch.env import make_batch_fns, make_env_config
+
+    cfg = make_env_config("10", dtype=torch.float32, n_sub=N_SUB,
+                          device="cuda")
+    reset_batch, step_batch = make_batch_fns(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state, _ = reset_batch(N_ENVS, gen)
+    a = torch.zeros(N_ENVS, dtype=torch.int64, device="cuda")
+
+    def steps(st):
+        for _ in range(3):
+            st = step_batch(st, a, gen)[0]
+        return st
+
+    def plain(d):
+        return profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA],
+                       on_trace_ready=tensorboard_trace_handler(
+                           d, use_gzip=True))
+
+    state = steps(state)
+    torch.cuda.synchronize()
+    out = {w: dict(traces=0, with_drops=0, drops=0, latest_drop_ms=0.0,
+                   k1_traced=[]) for w in ("plain", "guarded")}
+    for r in range(reps):
+        for way in (("plain", "guarded") if r % 2 == 0
+                    else ("guarded", "plain")):
+            with tempfile.TemporaryDirectory() as d:
+                with (plain(d) if way == "plain" else trace(d)):
+                    state = steps(state)
+                    torch.cuda.synchronize()
+                launches, kernels = _launch_and_kernel_events(
+                    trace_events(d))
+            first = min(e["ts"] for e in launches.values())
+            lost = [e for c, e in launches.items() if c not in kernels]
+            o = out[way]
+            o["traces"] += 1
+            o["with_drops"] += bool(lost)
+            o["drops"] += len(lost)
+            if lost:
+                o["latest_drop_ms"] = max(o["latest_drop_ms"], max(
+                    (e["ts"] - first) / 1e3 for e in lost))
+            o["k1_traced"].append(sum(
+                1 for e in kernels.values() if "window_kernel" in e["name"]))
+    for way, o in out.items():
+        print(json.dumps({"card": card, "trace_edges": way,
+                          "launches_per_trace": len(launches), **o}),
+              flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     mode = ap.add_mutually_exclusive_group()
@@ -391,6 +473,7 @@ def main() -> int:
     mode.add_argument("--outputs", metavar="FILE")
     mode.add_argument("--gate-window", metavar="SEED", type=int, nargs="+")
     mode.add_argument("--jacobian", choices=("cuda", "cpu"))
+    mode.add_argument("--trace-edges", metavar="REPS", type=int)
     ap.add_argument("--against", metavar="OTHER")
     args = ap.parse_args()
     if args.against and not args.outputs:
@@ -417,6 +500,8 @@ def main() -> int:
         return gate_window(card, args.gate_window)
     if args.jacobian:
         return jacobian_times("cuda")
+    if args.trace_edges:
+        return trace_edges(card, args.trace_edges)
     path = "fleet" if args.fleet else "df" if args.df else "single"
     kw = dict(dtype=torch.float32, n_sub=N_SUB, device="cuda")
     if path == "fleet":

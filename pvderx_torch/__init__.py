@@ -12,27 +12,17 @@ the RK4 control windows as hand-written CUDA kernels
 
 Importing the package registers the Gymnasium ids `pvderx_torch/PVDER-v0`
 (with a vector entry point) and `pvderx_torch/PVDERFleet-v0` when gymnasium
-is installed; the entry points are strings, resolved at `gym.make` time, so
-the env stack is not imported here.
+is installed (`pvderx_torch.env.gym_adapter.register_envs`); the entry
+points are strings, resolved at `gym.make` time, so the env stack is not
+imported here.
 """
-import importlib.util as _ilu
-
 from pvderx_torch import physics
+from pvderx_torch._gym_ids import register_envs as _register_envs
 from pvderx_torch.models import DER_MODEL_TYPES, make_der
-from pvderx_torch.params import DERParams, Exog, make_params, nominal_exog
+from pvderx_torch.params import (
+    PRESETS, DERParams, Exog, make_params, nominal_exog)
 
-if _ilu.find_spec("gymnasium") is not None:
-    from gymnasium.envs.registration import register as _gym_register
-    from gymnasium.envs.registration import registry as _gym_registry
-
-    if "pvderx_torch/PVDER-v0" not in _gym_registry:
-        _gym_register(
-            id="pvderx_torch/PVDER-v0",
-            entry_point="pvderx_torch.env.gym_adapter:PVDEREnv",
-            vector_entry_point="pvderx_torch.env.gym_adapter:PVDERVectorEnv")
-    if "pvderx_torch/PVDERFleet-v0" not in _gym_registry:
-        _gym_register(id="pvderx_torch/PVDERFleet-v0",
-                      entry_point="pvderx_torch.env.gym_adapter:PVDERFleetEnv")
+_register_envs()
 
 # top-level conveniences, resolved on first access so `import pvderx_torch`
 # stays light for physics-only users
@@ -67,6 +57,7 @@ def __getattr__(name):
 
 
 __all__ = [
-    "DERParams", "Exog", "make_params", "nominal_exog", "DER_MODEL_TYPES",
+    "DERParams", "Exog", "make_params", "nominal_exog", "PRESETS",
+    "DER_MODEL_TYPES",
     "make_der", "physics", *_LAZY,
 ]

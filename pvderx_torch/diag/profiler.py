@@ -73,24 +73,40 @@ def _sync_devices():
         torch.cuda.synchronize()
 
 
+# The profiler drops a device activity whose timestamps fall outside its
+# capture window, and on some card hosts the device's timestamps run
+# milliseconds behind the window's start: the first kernels of a block
+# traced right after the start went missing (a main-path step's K1 among
+# them). A traced block therefore starts and ends inside this much idle
+# time on the card.
+TRACE_GUARD_S = 0.05
+
+
 @contextlib.contextmanager
 def trace(logdir: str | None = None):
     """Capture a `torch.profiler` trace of the block into ``logdir``
     (default: ``pvderx_torch-trace`` under the temp directory); yields the
-    directory."""
+    directory. With a card, the block runs between two idle guards of
+    `TRACE_GUARD_S`, the device synced before each."""
     from torch.profiler import (
         ProfilerActivity, profile, tensorboard_trace_handler)
 
     logdir = logdir or os.path.join(tempfile.gettempdir(), "pvderx_torch-trace")
     acts = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
+    cuda = torch.cuda.is_available()
+    if cuda:
         acts.append(ProfilerActivity.CUDA)
     with profile(activities=acts, on_trace_ready=tensorboard_trace_handler(
             logdir, use_gzip=True)):
+        if cuda:
+            _sync_devices()
+            time.sleep(TRACE_GUARD_S)
         try:
             yield logdir
         finally:
             _sync_devices()
+            if cuda:
+                time.sleep(TRACE_GUARD_S)
 
 
 def trace_events(logdir: str) -> list:

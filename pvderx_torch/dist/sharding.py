@@ -11,7 +11,7 @@ import dataclasses
 
 import torch
 
-from pvderx_torch.dist.mesh import Mesh
+from pvderx_torch.dist.mesh import ENV_AXIS, Mesh
 
 # a runner's env fields, each with its env axis (the params pack is
 # [29, N] or [29, N, M]: fields first)
@@ -103,5 +103,5 @@ def shard_runner(runner, mesh: Mesh, env_fields=ENV_FIELDS):
         for v in [getattr(runner, f.name)]})
 
 
-__all__ = ["ENV_FIELDS", "env_sharding", "shard_batch", "replicate",
-           "shard_runner"]
+__all__ = ["ENV_AXIS", "ENV_FIELDS", "env_sharding", "shard_batch",
+           "replicate", "shard_runner"]

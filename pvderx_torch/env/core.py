@@ -4,11 +4,12 @@ A state machine of plain functions over a batch of N envs (SPEC.md §9):
 
     reset(cfg, n, generator)        -> (EnvState, obs [N, 13])
     step(cfg, state, actions)       -> (EnvState, obs, reward, done, info)
+    step_autoreset(cfg, state, actions, generator)   (the same, autoreset)
 
 Every leaf of `EnvState` has the env axis leading. The physics (`rhs_core`)
 puts the env axis last (`[n_s, N]`), so the state is transposed at that
 boundary. Scenario randomization, ride-through, MPPT and Volt-VAR are
-branchless (SPEC.md §8). Auto-reset (`env/vector.py`) restores the cached
+branchless (SPEC.md §8). Auto-reset (`step_autoreset`) restores the cached
 episode-initial state and re-draws only the mid-episode events, so no Newton
 solve runs in the hot loop. Every random draw takes an explicit
 `torch.Generator`.
@@ -27,8 +28,8 @@ from pvderx_torch.dist.mesh import draw_rows
 from pvderx_torch.ode import newton_solve
 from pvderx_torch.ode.implicit import WINDOWS as IMPLICIT_WINDOWS
 from pvderx_torch.ops.window import (
-    P_FIELDS, U_FIELDS, pack_struct, pad_draws, rk4_window_batch,
-    unpack_struct, unpad_reset)
+    P_FIELDS, U_FIELDS, pack_struct, pad_draws, pad_envs, pad_tree,
+    rk4_window_batch, unpack_struct, unpad_reset)
 from pvderx_torch.params import DERParams, Exog, make_params
 from pvderx_torch.physics import rhs_core
 from pvderx_torch.physics.xp import TorchXP, like
@@ -394,6 +395,16 @@ def event_draws(cfg: EnvConfig, n: int, generator: torch.Generator,
     return _rand(cfg, (n, N_EVENT_DRAWS), generator, mesh)
 
 
+def unalias(st: EnvState) -> EnvState:
+    """The state with its cached episode-initial buffers (``y0``, ``obs0``,
+    ``ppv0``) copied, so that none shares its storage with a live leaf
+    (`reset` leaves ``y0`` the same tensor as ``y``). The reference needs
+    this before XLA donates a runner's buffers; a torch step never writes
+    into its inputs, so the port's learners do not call it."""
+    return replace(st, y0=st.y0.clone(), obs0=st.obs0.clone(),
+                   ppv0=st.ppv0.clone())
+
+
 def _soft_reset(cfg: EnvConfig, st: EnvState, uv):
     """Episode restart reusing the cached steady state + initial observation;
     fresh draws ``uv`` [N, N_EVENT_DRAWS] only for the mid-episode events."""
@@ -510,12 +521,17 @@ def step(cfg: EnvConfig, st: EnvState, action, p_pack=None):
     its plain version for tensors on the CPU. ``p_pack`` is the [29, N]
     params pack, hoisted by callers that step the same params many times (it
     is computed here when omitted). The implicit schemes integrate
-    `rhs_core.rhs` through `ode.implicit` (no kernel; ``p_pack`` unused)."""
+    `rhs_core.rhs` through `ode.implicit` (no kernel; ``p_pack`` unused),
+    on the CPU over the batch padded as the plain windows pad theirs
+    (`ops.window.pad_envs`), so that an env's step does not depend on the
+    batch size."""
     t, exog, mppt, flag = _pre_window(cfg, st, action)
     if cfg.integrator != "rk4":
+        n = st.y.shape[0]
+        y, tp = pad_envs(n, (st.y, 0), (t, 0))
         y1 = IMPLICIT_WINDOWS[cfg.integrator](
-            partial(_rhs, der=st.der, exog=exog), st.y, t, cfg.dt_ctrl,
-            cfg.n_sub)
+            partial(_rhs, der=pad_tree(n, st.der), exog=pad_tree(n, exog)),
+            y, tp, cfg.dt_ctrl, cfg.n_sub)[:n]
         return _post_window(cfg, st, exog, mppt, t, y1, flag)
     if p_pack is None:
         p_pack = pack_struct(st.der, P_FIELDS)
@@ -524,8 +540,37 @@ def step(cfg: EnvConfig, st: EnvState, action, p_pack=None):
     return _post_window(cfg, st, exog, mppt, t, y1, flag)
 
 
+def _where_done(done, a, b):
+    """torch.where with done [N] broadcast against [N, ...] leaves; a leaf
+    that is the same tensor in both states is passed through."""
+    if a is b:
+        return a
+    d = done.reshape(done.shape + (1,) * (a.dim() - 1))
+    return torch.where(d, a, b)
+
+
+def autoreset(done, restarted, stepped):
+    """Select the soft-reset (state, obs) where done, else the stepped one."""
+    (st_r, obs_r), (st1, obs) = restarted, stepped
+    return (tree_map(lambda a, b: _where_done(done, a, b), st_r, st1),
+            _where_done(done, obs_r, obs))
+
+
+def step_autoreset(cfg: EnvConfig, st: EnvState, action,
+                   generator: torch.Generator, p_pack=None, mesh=None):
+    """`step`, then a branchless restart of the envs that are done: the
+    cached episode-initial state, with fresh mid-episode events drawn from
+    ``generator`` (under a ``mesh``, this rank's rows of the global draw).
+    The batched counterpart of the reference's per-env `step_autoreset`,
+    which draws from the state's own key."""
+    st1, obs, reward, done, info = step(cfg, st, action, p_pack)
+    uv = event_draws(cfg, st.y.shape[0], generator, mesh)
+    st2, obs2 = autoreset(done, _soft_reset(cfg, st1, uv), (st1, obs))
+    return st2, obs2, reward, done, info
+
+
 __all__ = [
     "ScenarioConfig", "EnvConfig", "EnvState", "make_env_config", "reset",
-    "step", "event_draws", "OBS_DIM", "N_ACTIONS", "N_ACTIONS_ANOM",
-    "ACT_DIM_CONT", "INTEGRATORS",
+    "step", "step_autoreset", "autoreset", "unalias", "event_draws",
+    "OBS_DIM", "N_ACTIONS", "N_ACTIONS_ANOM", "ACT_DIM_CONT", "INTEGRATORS",
 ]

@@ -36,13 +36,13 @@ import torch
 from pvderx_torch._struct import replace, struct, tree_map
 from pvderx_torch.dist.mesh import local_count
 from pvderx_torch.env import core
-from pvderx_torch.env.core import OBS_DIM, EnvConfig
-from pvderx_torch.env.vector import autoreset, rollout_with
+from pvderx_torch.env.core import N_ACTIONS, OBS_DIM, EnvConfig, autoreset
+from pvderx_torch.env.vector import rollout_with
 from pvderx_torch.ode import newton_solve
 from pvderx_torch.ode.implicit import WINDOWS as IMPLICIT_WINDOWS
 from pvderx_torch.ops.window import (
-    P_FIELDS, U_FIELDS, pack_struct, pad_draws, rk4_fleet_window_batch,
-    unpack_struct, unpad_reset)
+    P_FIELDS, U_FIELDS, pack_struct, pad_draws, pad_envs, pad_tree,
+    rk4_fleet_window_batch, unpack_struct, unpad_reset)
 from pvderx_torch.params import DERParams, Exog
 from pvderx_torch.physics import fleet, rhs_core
 from pvderx_torch.physics.xp import TorchXP, like
@@ -298,13 +298,16 @@ def step(fc: FleetConfig, st: FleetState, action, p_pack=None):
     `ops.window.rk4_fleet_window_batch`, with ``p_pack`` the [29, N, M]
     params pack, hoisted by callers that step the same params many times
     (computed here when omitted); the implicit schemes solve the stacked
-    [M·n_s] system of each env (``p_pack`` unused)."""
+    [M·n_s] system of each env (``p_pack`` unused; on the CPU over the
+    batch padded as in `env.core.step`)."""
     cfg = fc.base
     t, fu, mppt = _pre_window(fc, st, action)
     if cfg.integrator != "rk4":
+        n = st.y.shape[0]
+        y, tp = pad_envs(n, (st.y, 0), (t, 0))
         y1 = IMPLICIT_WINDOWS[cfg.integrator](
-            partial(_rhs, der=st.der, fu=fu), st.y, t, cfg.dt_ctrl,
-            cfg.n_sub)
+            partial(_rhs, der=pad_tree(n, st.der), fu=pad_tree(n, fu)), y,
+            tp, cfg.dt_ctrl, cfg.n_sub)[:n]
         return _post_window(fc, st, fu, mppt, t, y1)
     if p_pack is None:
         p_pack = pack_struct(st.der, P_FIELDS)
@@ -314,9 +317,11 @@ def step(fc: FleetConfig, st: FleetState, action, p_pack=None):
     return _post_window(fc, st, fu, mppt, t, y1)
 
 
-def _step_batch_impl(fc: FleetConfig, state, actions, generator,
-                     p_pack=None, mesh=None):
-    """`step` of every env, then the autoreset select on done."""
+def step_autoreset(fc: FleetConfig, state, actions, generator,
+                   p_pack=None, mesh=None):
+    """`step` of every env, then a branchless restart of the done ones, their
+    new events drawn from ``generator`` (`env.core.step_autoreset` for the
+    fleet)."""
     st1, obs, reward, done, info = step(fc, state, actions, p_pack)
     uv = core.event_draws(fc.base, state.y.shape[0], generator, mesh)
     st2, obs2 = autoreset(done, _soft_reset(fc, st1, uv), (st1, obs))
@@ -341,7 +346,7 @@ def make_fleet_batch_fns(fc: FleetConfig, mesh=None):
         return reset(fc, local_count(mesh, n), generator, mesh)
 
     def step_batch(state, actions, generator: torch.Generator):
-        return _step_batch_impl(fc, state, actions, generator, mesh=mesh)
+        return step_autoreset(fc, state, actions, generator, mesh=mesh)
 
     return reset_batch, step_batch
 
@@ -352,12 +357,13 @@ def fleet_rollout(fc: FleetConfig, state, obs, policy_fn, n_steps: int,
 
     policy_fn(obs, generator) -> actions. Returns (state, obs, rewards
     [T, N], dones [T, N]); under a ``mesh``, of this rank's envs."""
-    return rollout_with(partial(_step_batch_impl, mesh=mesh), fc, state, obs,
+    return rollout_with(partial(step_autoreset, mesh=mesh), fc, state, obs,
                         policy_fn, n_steps, generator,
                         pack_struct(state.der, P_FIELDS))
 
 
 __all__ = [
     "FleetConfig", "FleetState", "make_fleet_config", "fleet_obs_dim",
-    "reset", "step", "make_fleet_batch_fns", "fleet_rollout",
+    "reset", "step", "step_autoreset", "make_fleet_batch_fns",
+    "fleet_rollout", "N_ACTIONS",
 ]

@@ -10,9 +10,9 @@ Each takes ``device`` (default ``"cuda"``) and draws its episodes from a
 `torch.Generator` on that device, seeded by ``seed`` and by
 ``reset(seed=...)``. The Gymnasium contract returns numpy, so every step
 copies its outputs to the host. The ids `pvderx_torch/PVDER-v0` and
-`pvderx_torch/PVDERFleet-v0` are registered by `import pvderx_torch` when
-gymnasium is installed. Without gymnasium the classes keep the same
-reset/step surface, without spaces.
+`pvderx_torch/PVDERFleet-v0` are registered by `register_envs`, which
+`import pvderx_torch` calls, when gymnasium is installed. Without
+gymnasium the classes keep the same reset/step surface, without spaces.
 
 `PVDERVectorEnv` and `PVDERFleetEnv` take ``mesh`` (`pvderx_torch.dist`):
 the adapter on a rank then steps that rank's rows of the global batch
@@ -37,8 +37,9 @@ except ImportError:
     spaces = None
     _HAS_GYM = False
 
+from pvderx_torch._gym_ids import register_envs
 from pvderx_torch.dist.mesh import local_count
-from pvderx_torch.env import core, fleet, vector
+from pvderx_torch.env import core, fleet
 from pvderx_torch.ops.window import P_FIELDS, pack_struct
 
 _BASE = gym.Env if _HAS_GYM else object
@@ -202,7 +203,7 @@ class PVDERVectorEnv(_VBASE):
             cfg, self._state, _actions(cfg, actions, (n,)), self._p_pack)
         restarted = core._soft_reset(
             cfg, st1, core.event_draws(cfg, n, self._gen, self.mesh))
-        self._state, obs = vector.autoreset(done, restarted, (st1, obs_f))
+        self._state, obs = core.autoreset(done, restarted, (st1, obs_f))
         info_np = _host(info)
         terminated = info_np.pop("terminated")
         truncated = info_np.pop("truncated")
@@ -285,4 +286,4 @@ class PVDERFleetEnv(_BASE):
                 f"tripped={float(i['tripped_frac']):.2f}")
 
 
-__all__ = ["PVDEREnv", "PVDERVectorEnv", "PVDERFleetEnv"]
+__all__ = ["PVDEREnv", "PVDERVectorEnv", "PVDERFleetEnv", "register_envs"]

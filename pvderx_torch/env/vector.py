@@ -22,36 +22,10 @@ import torch
 
 from functools import partial
 
-from pvderx_torch._struct import tree_map
 from pvderx_torch.dist.mesh import local_count
 from pvderx_torch.env import core
 from pvderx_torch.ops.dualfloat import rk4_window_batch_df
 from pvderx_torch.ops.window import P_FIELDS, U_FIELDS, pack_struct
-
-
-def _where_done(done, a, b):
-    """torch.where with done [N] broadcast against [N, ...] leaves; a leaf
-    that is the same tensor in both states is passed through."""
-    if a is b:
-        return a
-    d = done.reshape(done.shape + (1,) * (a.dim() - 1))
-    return torch.where(d, a, b)
-
-
-def autoreset(done, restarted, stepped):
-    """Select the soft-reset (state, obs) where done, else the stepped one."""
-    (st_r, obs_r), (st1, obs) = restarted, stepped
-    return (tree_map(lambda a, b: _where_done(done, a, b), st_r, st1),
-            _where_done(done, obs_r, obs))
-
-
-def _step_batch_impl(cfg: core.EnvConfig, state, actions, generator,
-                     p_pack=None, mesh=None):
-    """core.step of every env, then the autoreset select on done."""
-    st1, obs, reward, done, info = core.step(cfg, state, actions, p_pack)
-    uv = core.event_draws(cfg, state.y.shape[0], generator, mesh)
-    st2, obs2 = autoreset(done, core._soft_reset(cfg, st1, uv), (st1, obs))
-    return st2, obs2, reward, done, info
 
 
 def make_batch_fns(cfg: core.EnvConfig, mesh=None):
@@ -61,8 +35,8 @@ def make_batch_fns(cfg: core.EnvConfig, mesh=None):
 
     actions: [N] integer (discrete) or [N, 2] (continuous). step_batch
     auto-resets done envs, drawing their new events from ``generator`` (on
-    ``cfg.device``); `core.step` is the step without autoreset. All outputs
-    are batched on axis 0.
+    ``cfg.device``), as `core.step_autoreset`; `core.step` is the step
+    without autoreset. All outputs are batched on axis 0.
 
     ``mesh``: ``n`` is the global env count, and the state, actions and
     outputs are this rank's rows (see the module docstring).
@@ -72,7 +46,8 @@ def make_batch_fns(cfg: core.EnvConfig, mesh=None):
         return core.reset(cfg, local_count(mesh, n), generator, mesh)
 
     def step_batch(state, actions, generator: torch.Generator):
-        return _step_batch_impl(cfg, state, actions, generator, mesh=mesh)
+        return core.step_autoreset(cfg, state, actions, generator,
+                                   mesh=mesh)
 
     return reset_batch, step_batch
 
@@ -92,8 +67,9 @@ def _step_df_impl(cfg: core.EnvConfig, carry, actions, generator,
     st1, obs, reward, done, info = core._post_window(cfg, state, exog, mppt,
                                                      t, y1, flag)
     uv = core.event_draws(cfg, state.y.shape[0], generator, mesh)
-    st2, obs2 = autoreset(done, core._soft_reset(cfg, st1, uv), (st1, obs))
-    y_lo2 = _where_done(done, torch.zeros_like(y1_lo), y1_lo)
+    st2, obs2 = core.autoreset(done, core._soft_reset(cfg, st1, uv),
+                               (st1, obs))
+    y_lo2 = core._where_done(done, torch.zeros_like(y1_lo), y1_lo)
     return (st2, y_lo2), obs2, reward, done, info
 
 
@@ -145,7 +121,7 @@ def rollout(cfg: core.EnvConfig, state, obs, policy_fn, n_steps: int,
     autoreset draws are global (see the module docstring); a policy that
     draws does so itself (`dist.mesh.draw_rows`).
     """
-    return rollout_with(partial(_step_batch_impl, mesh=mesh), cfg, state,
+    return rollout_with(partial(core.step_autoreset, mesh=mesh), cfg, state,
                         obs, policy_fn, n_steps, generator,
                         pack_struct(state.der, P_FIELDS))
 

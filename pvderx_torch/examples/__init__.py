@@ -6,5 +6,6 @@
     python -m pvderx_torch.examples.gain_tuning --iters 40
 
 Each runs on the card; ``--cpu`` runs it on the CPU (the plain windows).
-Each module's ``main(argv)`` takes the same flags.
+Each module's ``main(argv)`` takes the same flags. The demo notebooks are
+in `pvderx_torch.examples.notebooks`.
 """

@@ -16,10 +16,10 @@ global env count and both functions work on this rank's rows of the batch:
 each rank launches the window kernel on its own N/W envs, and every random
 draw is made at the global shape (`dist.mesh.draw_rows`).
 
-The reference's ``unalias`` is not carried over: it breaks the aliases that
-reset leaves between cached buffers, which only XLA's buffer donation
-needs. A torch step never writes into its inputs, so there is nothing to
-break.
+The reference's runners call ``unalias`` on a fresh reset: it breaks the
+aliases that reset leaves between cached buffers, which only XLA's buffer
+donation needs. A torch step never writes into its inputs, so the port's
+runners do not (`env.core.unalias` is there for the reference's surface).
 """
 from __future__ import annotations
 
@@ -28,7 +28,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from pvderx_torch.dist.mesh import local_count
-from pvderx_torch.env import core, fleet, vector
+from pvderx_torch.env import core, fleet
 from pvderx_torch.ops.window import P_FIELDS, pack_struct
 
 
@@ -80,8 +80,8 @@ def make_env_api(env_cfg, mesh=None) -> EnvAPI:
                                mesh)
 
         def step(state, actions, generator, p_pack=None):
-            return fleet._step_batch_impl(env_cfg, state, actions, generator,
-                                          p_pack, mesh)
+            return fleet.step_autoreset(env_cfg, state, actions, generator,
+                                        p_pack, mesh)
 
         return EnvAPI(reset_batch=reset_batch, step=step,
                       n_actions=core.N_ACTIONS, act_dim=0,
@@ -100,8 +100,8 @@ def make_env_api(env_cfg, mesh=None) -> EnvAPI:
         return core.reset(env_cfg, local_count(mesh, n), generator, mesh)
 
     def step(state, actions, generator, p_pack=None):
-        return vector._step_batch_impl(env_cfg, state, actions, generator,
-                                       p_pack, mesh)
+        return core.step_autoreset(env_cfg, state, actions, generator,
+                                   p_pack, mesh)
 
     return EnvAPI(reset_batch=reset_batch, step=step, n_actions=n_actions,
                   act_dim=act_dim, obs_dim=core.OBS_DIM, n_units=1,

@@ -45,7 +45,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any
+from typing import Any, NamedTuple
 
 import torch
 
@@ -68,6 +68,18 @@ class PPOConfig:
     rollout_len: int = 16
     n_epochs: int = 4
     n_minibatch: int = 4
+
+
+class Transition(NamedTuple):
+    """One collected env step of every env (``[N, ...]`` each), or a
+    rollout of them stacked on a leading time axis (``[T, N, ...]``)."""
+
+    obs: torch.Tensor
+    action: torch.Tensor
+    logp: torch.Tensor
+    value: torch.Tensor
+    reward: torch.Tensor
+    done: torch.Tensor
 
 
 @dataclasses.dataclass
@@ -196,21 +208,19 @@ def make_ppo(env_cfg, ppo: PPOConfig, hidden=(128, 128), dtype=torch.float32,
     @torch.no_grad()
     def collect(runner: PPORunner):
         """``rollout_len`` env steps under the current policy: (the runner
-        at the new env state, (trajectory, value of the last obs))."""
+        at the new env state, (trajectory, value of the last obs)), the
+        trajectory a `Transition` of [T, N, ...] tensors."""
         net, gen = runner.net, runner.generator
         st, ob = runner.env_state, runner.obs
-        traj = {k: [] for k in ("obs", "action", "logp", "value", "reward",
-                                "done")}
+        steps = []
         for _ in range(ppo.rollout_len):
             logits, v = net(ob)
             a, logp = _sample(logits, gen)
             st, ob2, r, d, _ = api.step(st, a, gen, runner.p_pack)
-            for k, x in zip(traj, (ob, a, logp, v, r.to(dtype),
-                                   d.to(dtype))):
-                traj[k].append(x)
+            steps.append(Transition(ob, a, logp, v, r.to(dtype), d.to(dtype)))
             ob = ob2
         _, last_v = net(ob)
-        traj = {k: torch.stack(x) for k, x in traj.items()}
+        traj = Transition(*map(torch.stack, zip(*steps)))
         return dataclasses.replace(runner, env_state=st, obs=ob), (traj,
                                                                    last_v)
 
@@ -241,11 +251,11 @@ def make_ppo(env_cfg, ppo: PPOConfig, hidden=(128, 128), dtype=torch.float32,
     def _pack(traj, adv, ret):
         """The six per-row fields as one [T·N, obs_dim + M + 4] matrix in
         the promoted dtype of obs and the compute dtype."""
-        rows = traj["reward"].numel()
-        mdt = torch.promote_types(traj["obs"].dtype, dtype)
-        cols = (traj["obs"].reshape(rows, -1),
-                traj["action"].reshape(rows, M).to(dtype),
-                traj["logp"].reshape(rows, 1), traj["value"].reshape(rows, 1),
+        rows = traj.reward.numel()
+        mdt = torch.promote_types(traj.obs.dtype, dtype)
+        cols = (traj.obs.reshape(rows, -1),
+                traj.action.reshape(rows, M).to(dtype),
+                traj.logp.reshape(rows, 1), traj.value.reshape(rows, 1),
                 adv.reshape(rows, 1), ret.reshape(rows, 1))
         return torch.cat([c.to(mdt) for c in cols], dim=1)
 
@@ -289,17 +299,17 @@ def make_ppo(env_cfg, ppo: PPOConfig, hidden=(128, 128), dtype=torch.float32,
     def update(runner: PPORunner, rollout):
         """GAE and the clipped-PPO epochs on one collected rollout."""
         traj, last_v = rollout
-        adv, ret = gae(traj["reward"], traj["value"], traj["done"], last_v,
+        adv, ret = gae(traj.reward, traj.value, traj.done, last_v,
                        ppo.gamma, ppo.lam)
-        n = traj["reward"].shape[1]
+        n = traj.reward.shape[1]
         n_global = n if mesh is None else n * mesh.size(ENV_AXIS)
         loss, pg, vl, ent = _epochs(runner, _pack(traj, adv, ret), n_global)
         if mesh is None:
-            r_mean, d_frac = traj["reward"].mean(), traj["done"].mean()
+            r_mean, d_frac = traj.reward.mean(), traj.done.mean()
         else:
-            rows = traj["reward"].shape[0] * n_global
+            rows = traj.reward.shape[0] * n_global
             r_mean, d_frac = mesh.all_reduce(torch.stack(
-                [traj["reward"].sum(), traj["done"].sum()])) / rows
+                [traj.reward.sum(), traj.done.sum()])) / rows
         metrics = {
             "loss": loss, "pg_loss": pg, "v_loss": vl, "entropy": ent,
             "reward_mean": r_mean, "done_frac": d_frac,
@@ -314,4 +324,5 @@ def make_ppo(env_cfg, ppo: PPOConfig, hidden=(128, 128), dtype=torch.float32,
     return init_runner, train_step, make_net
 
 
-__all__ = ["PPOConfig", "PPORunner", "make_ppo", "clip_by_global_norm", "gae"]
+__all__ = ["PPOConfig", "PPORunner", "Transition", "make_ppo",
+           "clip_by_global_norm", "gae"]

@@ -13,6 +13,11 @@ from __future__ import annotations
 import torch
 
 
+def rk4_step(f, y, t, h):
+    """One classical RK4 step (uncompensated; kept for single-step callers)."""
+    return y + rk4_delta(f, y, t, h)
+
+
 def rk4_delta(f, y, t, h):
     """The RK4 state increment (h/6)·(k1+2k2+2k3+k4) without applying it."""
     k1 = f(y, t)

@@ -100,6 +100,14 @@ def pad_envs(n: int, *tensors_axes):
         for t, ax in tensors_axes]
 
 
+def pad_tree(n: int, tree):
+    """`pad_envs` of every ``[n, ...]`` leaf of a dataclass (env axis
+    leading; 0-d leaves stay): the per-env inputs a closure over the batch
+    holds, for a window that takes no packs (`ode.implicit`)."""
+    return tree_map(lambda x: pad_envs(n, (x, 0))[0] if x.dim() else x,
+                    tree)
+
+
 def pad_draws(n: int, *draws):
     """A reset's draws ([n, ...] each) padded like `pad_envs`, and the padded
     count: the whole reset then runs every env through the CPU's vector

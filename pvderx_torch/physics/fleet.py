@@ -22,7 +22,7 @@ import torch
 
 from pvderx_torch.params import DERParams, Exog
 from pvderx_torch.physics.rhs_core import (
-    C, algebra_given_v, pcc_voltage, rhs_given_v, steady_state_guess)
+    C, algebra_given_v, cscale, pcc_voltage, rhs_given_v, steady_state_guess)
 from pvderx_torch.physics.xp import TorchXP
 
 

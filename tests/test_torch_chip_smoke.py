@@ -9,7 +9,13 @@
   substep loop (the largest backward branch) and the stage loop inside it,
   and estimates the instructions one substep runs; `sass_per_substep` and
   `sass_issue_floor_ms` turn that into the SASS-issue floor, and
-  `trace_launch` reads a launch's warps from a profiler trace.
+  `trace_launch` reads a launch's warps from a profiler trace;
+  `_launch_and_kernel_events` pairs a trace's launches with its kernels.
+- A phase that raises ends `chip_smoke.main` with one ``[failed]`` line
+  naming it and exit code 1; a subprocess past its timeout is stopped and
+  named with its phase and the end of its stderr (`wait_for`).
+- Phase 35 (`run_notebooks`) runs `run_cells --device cpu --tiny`;
+  `run_cells` never runs a cell tagged ``plot``.
 """
 import numpy as np
 import pytest
@@ -352,6 +358,24 @@ def test_torch_chip_smoke_grad_and_examples_phases_run_on_the_cpu():
     assert all(v["rc"] == 0 for v in ex.values()) and len(ex) == 4
 
 
+def test_torch_chip_smoke_trace_edges_pairs_launches_with_kernels():
+    """`profile_torch_step._launch_and_kernel_events` pairs each runtime
+    launch with its kernel by correlation id, so a dropped kernel shows as
+    a launch without one."""
+    from profile_torch_step import _launch_and_kernel_events
+
+    ev = lambda cat, name, c: {"cat": cat, "name": name, "ts": c,
+                               "args": {"correlation": c}}
+    events = [ev("cuda_runtime", "cudaLaunchKernel", 1),
+              ev("cuda_runtime", "cudaLaunchKernel", 2),
+              ev("cuda_runtime", "cudaMemcpyAsync", 3),
+              ev("kernel", "window_kernel<1>", 2),
+              {"cat": "cpu_op", "name": "aten::add", "ts": 0, "args": {}}]
+    launches, kernels = _launch_and_kernel_events(events)
+    assert sorted(launches) == [1, 2] and sorted(kernels) == [2]
+    assert [c for c in launches if c not in kernels] == [1]
+
+
 def test_torch_chip_smoke_prefetched_truth_is_the_inline_one():
     """A truth started on a process pool (`prefetch_truths`, as `main`
     does while the kernels build) is the one computed in this process."""
@@ -368,3 +392,108 @@ def test_torch_chip_smoke_prefetched_truth_is_the_inline_one():
     want, _ = cs._truth_job(key)
     assert got.shape == want.shape == (4, want.shape[1]) and seconds > 0
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("fails_in,target", [
+    ("build", ("pvderx_torch.ops._build", "build")),
+    ("kernel", ("chip_smoke", "check_kernel")),
+])
+def test_torch_chip_smoke_a_failing_phase_prints_one_failed_line(
+        monkeypatch, capsys, fails_in, target):
+    """`main` on a (faked) card whose phase ``fails_in`` raises: exactly one
+    ``[failed]`` line naming that phase and the error, no result line, and
+    exit code 1."""
+    import importlib
+    import json
+
+    import chip_smoke as cs
+    from pvderx_torch.ops import _build
+
+    def boom(*a, **kw):
+        raise RuntimeError(f"{fails_in} broke")
+
+    monkeypatch.setattr(cs.torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(cs.torch.cuda, "get_device_name", lambda i=0: "Fake")
+    monkeypatch.setattr(cs, "_smi", lambda q: "1980 MHz" if "clocks" in q
+                        else "Fake, 700.00 W")
+    monkeypatch.setattr(cs, "prefetch_truths", lambda pool: None)
+    for name in ("build", "load"):
+        monkeypatch.setattr(_build, name, lambda *a, **kw: None)
+    monkeypatch.setattr(_build, "ptxas_report", lambda: "")
+    monkeypatch.setattr(importlib.import_module(target[0]), target[1], boom)
+    rc = cs.main()
+    out, err = capsys.readouterr()
+    lines = out.splitlines()
+    failed = [ln for ln in lines if ln.startswith("[failed] ")]
+    assert rc == 1 and len(failed) == 1 and lines[-1] == failed[0]
+    got = json.loads(failed[0][len("[failed] "):])
+    assert got["phase"] == fails_in
+    assert got["error"] == f"RuntimeError: {fails_in} broke"
+    assert got["at_s"] > 0 and "Traceback" in err
+    assert not any('"ok": true' in ln for ln in lines)
+
+
+def test_torch_chip_smoke_a_subprocess_timeout_names_phase_job_and_stderr():
+    import subprocess
+    import sys
+
+    import chip_smoke as cs
+
+    cs.begin("examples")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", "import sys, time\n"
+         "sys.stderr.write('the tail of stderr\\n'); sys.stderr.flush()\n"
+         "time.sleep(120)\n"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    with pytest.raises(TimeoutError) as info:
+        cs.wait_for(proc, "example gym_rollout", 3)
+    msg = str(info.value)
+    assert msg.startswith("phase examples: example gym_rollout did not end "
+                          "within 3 s")
+    assert "the tail of stderr" in msg and proc.poll() is not None
+
+
+def test_torch_chip_smoke_notebooks_phase_runs_on_the_cpu(capsys):
+    """Phase 35 at `build_notebooks.TINY`'s sizes on the CPU, through
+    ``run_cells --device cpu --tiny`` as a subprocess: both notebooks, every
+    check passed, the steps their sizes give, no K1 launch (the CPU's plain
+    window)."""
+    import json
+
+    import chip_smoke as cs
+    from pvderx_torch.examples.notebooks import build_notebooks as bn
+
+    books = cs.run_notebooks("cpu", "cpu", tiny=True)
+    assert set(books) == {"standalone_simulation", "train_rl"}
+    for name, b in books.items():
+        assert b["checks"]["ok"] and b["k1_launches"] == 0
+        assert b["env_steps"] == bn.env_steps(name, bn.TINY) > 0
+    assert books["train_rl"]["checks"]["export_equal"]
+    lines = [json.loads(ln[len("[notebooks] "):]) for ln in
+             capsys.readouterr().out.splitlines()
+             if ln.startswith("[notebooks] ")]
+    assert [ln.get("notebook") for ln in lines] == [
+        "standalone_simulation", "train_rl", None]
+    assert lines[-1]["rc"] == 0
+
+
+def test_torch_chip_smoke_run_cells_never_runs_a_plot_cell(monkeypatch,
+                                                           capsys):
+    """A notebook whose plot cell would raise: `run_cells` runs the compute
+    cells around it and never that one."""
+    from pvderx_torch.examples.notebooks import build_notebooks as bn
+    from pvderx_torch.examples.notebooks import run_cells
+
+    cells = lambda device, sizes: [
+        bn.Cell("markdown", "# a title"),
+        bn.Cell("code", "x = 1\n", ("compute",)),
+        bn.Cell("code", "raise RuntimeError('a plot cell ran')\n", ("plot",)),
+        bn.Cell("code", "y = x + 1\n", ("compute",))]
+    monkeypatch.setitem(bn.NOTEBOOKS, "standalone_simulation",
+                        (cells, lambda ns, sizes: {"ok": ns["y"] == 2}))
+    out = run_cells.run_notebook("standalone_simulation", "cpu")
+    assert "failed" not in out and out["checks"] == {"ok": True}
+    assert [r["cell"] for r in out["cells"]] == [1, 3]
+    assert run_cells.main(["--device", "cpu", "--notebook",
+                           "standalone_simulation"]) == 0
+    assert "a plot cell ran" not in capsys.readouterr().out

@@ -8,8 +8,12 @@ intra-op thread each) and run `tests/torch_dist_cases.py`:
   generator state, equals the one-rank rollout bit for bit (obs, reward,
   done and the final state): the single-DER env in float64 and float32
   (12 steps over a horizon of 8, random actions drawn at the global shape,
-  so autoreset draws fire), the fleet at M = 4 (6 steps, horizon 4) and the
-  df32 tier (3 steps, horizon 2; hi and lo);
+  so autoreset draws fire), the fleet at M = 4 (6 steps, horizon 4), the
+  df32 tier (3 steps, horizon 2; hi and lo), and the implicit schemes
+  (`ode.implicit`, which the CPU runs over the batch padded as the plain
+  windows pad theirs): the trapezoidal and backward-Euler env in float64
+  (n_sub 4, 6 steps, horizon 4) and the trapezoidal fleet at M = 2
+  (n_sub 2, 4 steps, horizon 3);
 - a reset under the mesh equals the slice of the one-rank reset (the CPU's
   batched solve is per matrix);
 - `process_env_slice` is the reference's formula (`pvderx.dist.multihost`,
@@ -39,7 +43,8 @@ sys.path.insert(0, str(ROOT / "tests"))
 
 import torch_dist_cases as cases  # noqa: E402
 
-KINDS = ("env_f64", "env_f32", "fleet", "df32")
+KINDS = ("env_f64", "env_f32", "fleet", "df32", "trapezoid", "backward_euler",
+         "fleet_trapezoid")
 
 
 def run_ranks(workdir, nproc, names, timeout=240):

@@ -2,9 +2,9 @@
 JAX or the JAX package.
 
 - In a fresh interpreter, importing `pvderx_torch` and every submodule
-  (the distributed layer `pvderx_torch.dist.*` and the training examples
-  among them) leaves neither `jax` nor any `pvderx` module in
-  `sys.modules`.
+  (the distributed layer `pvderx_torch.dist.*`, the training examples and
+  the notebooks' builder and runner among them) leaves neither `jax` nor
+  any `pvderx` module in `sys.modules`.
 - An AST scan of `pvderx_torch/**/*.py` and `chip_smoke.py` finds no import
   of `jax` or of `pvderx` / `pvderx.*`.
 """
@@ -48,7 +48,11 @@ def test_torch_import_pulls_in_no_jax():
             "pvderx_torch.dist.sharding", "pvderx_torch.dist.tp",
             "pvderx_torch.dist.launch", "pvderx_torch.examples.train_ppo",
             "pvderx_torch.examples.train_dqn",
-            "pvderx_torch.examples.train_sac"} <= set(mods) and len(mods) >= 55
+            "pvderx_torch.examples.train_sac", "pvderx_torch._gym_ids",
+            "pvderx_torch.examples.notebooks",
+            "pvderx_torch.examples.notebooks.build_notebooks",
+            "pvderx_torch.examples.notebooks.run_cells"} <= set(mods) and (
+                len(mods) >= 65)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"

@@ -52,6 +52,13 @@ def env_cfg(kind: str):
     if kind == "df32":
         return make_env_config("10", dtype=torch.float32, n_sub=40,
                                horizon=2, device="cpu"), 3
+    if kind in ("trapezoid", "backward_euler"):
+        return make_env_config("10", dtype=torch.float64, n_sub=4,
+                               horizon=4, integrator=kind, device="cpu"), 6
+    if kind == "fleet_trapezoid":
+        return make_fleet_config("10", m=2, dtype=torch.float64, n_sub=2,
+                                 horizon=3, integrator="trapezoid",
+                                 device="cpu"), 4
     raise KeyError(kind)
 
 
@@ -66,7 +73,7 @@ def env_run(kind: str, state, obs, gen, mesh=None):
     {obs, rews, dones, y} of the final state and every step."""
     cfg, steps = env_cfg(kind)
     pol = random_policy(mesh)
-    if kind == "fleet":
+    if kind.startswith("fleet"):
         st, ob, r, d = fleet.fleet_rollout(cfg, state, obs, pol, steps, gen,
                                            mesh)
         return dict(obs=ob, rews=r, dones=d, y=st.y)
@@ -82,7 +89,8 @@ def env_reset(kind: str, mesh=None, seed: int = 0):
     """(state, obs, generator) of the env case's reset under ``mesh``."""
     cfg, _ = env_cfg(kind)
     gen = torch.Generator().manual_seed(seed)
-    fns = {"fleet": make_fleet_batch_fns, "df32": make_batch_fns_df}.get(
+    fns = {"fleet": make_fleet_batch_fns, "fleet_trapezoid":
+           make_fleet_batch_fns, "df32": make_batch_fns_df}.get(
         kind, make_batch_fns)
     state, obs = fns(cfg, mesh=mesh)[0](N, gen)
     return state, obs, gen
@@ -177,6 +185,18 @@ def case_fleet(workdir, mesh):
 
 def case_df32(workdir, mesh):
     return _env_case("df32", workdir, mesh)
+
+
+def case_trapezoid(workdir, mesh):
+    return _env_case("trapezoid", workdir, mesh)
+
+
+def case_backward_euler(workdir, mesh):
+    return _env_case("backward_euler", workdir, mesh)
+
+
+def case_fleet_trapezoid(workdir, mesh):
+    return _env_case("fleet_trapezoid", workdir, mesh)
 
 
 def gym_run(mesh=None, n=8, steps=6):
