@@ -6,9 +6,9 @@
 Phases, one line each (a failing phase raises, so the script exits non-zero):
 
 1. device   — the card's name and power limit (nvidia-smi).
-2. build    — nvcc builds the window kernels from pvderx_torch/ops/csrc/
-              (one nvcc per source, in parallel) and reports each kernel's
-              registers and spills.
+2. build    — nvcc builds the kernels (K1-K3, N1-N4) from
+              pvderx_torch/ops/csrc/ (one nvcc per source, in parallel) and
+              reports each kernel's registers and spills.
 3. kernel   — the CUDA window kernel (K1) against its plain torch version on the
               same seeded inputs (presets 10 and 50, const-Vdc, unbalanced
               3-phase, disconnect/cessation, a ragged N): max abs error
@@ -190,9 +190,33 @@ Phases, one line each (a failing phase raises, so the script exits non-zero):
               net's argmax on the same observations. The plot cells do not
               run.
 
+36. native — the float64 engine (`pvderx_torch.native`, the port of
+              pvderx_native.cpp; kernels N1-N4 of csrc/native.cu), on its
+              own after phase 35: N4 (the RHS) against its plain version
+              and the numpy oracle at presets 10, 50, 250 (eventful exog,
+              25 states) and tripped / const-Vdc, <= 1e-12 (rtol and atol);
+              N1 (the Kahan RK4 window) at preset 10, 32768 envs, n_sub 64
+              against the plain float64 window, <= 1e-12; on phase 11's
+              cases against `oracle.rk4_window_np`, <= 1e-10, K3's and K1's
+              errors beside; ms per launch of N1, K1 and K3 at presets 10
+              and 50 on the same inputs; the public batch bit for bit its
+              one-env calls; N2 (adaptive DP5(4)) on the 12-window 0.6 pu
+              sag at presets 10 and 50 against LSODA per window, <= 1e-8,
+              its accepted steps beside the plain version's and ms per
+              window, then one window at 32768 envs (ms, steps, the warps'
+              efficiency); N3 (Newton) `steady_state` at presets 10 and 50
+              against fsolve, <= 1e-9, residual < 1e-9, and 32768 envs
+              against the plain version beside the reset's Newton
+              (`env.core.steady_state`); then the public path with the
+              counters at 0 (`steady_state`, `rhs`, `rk4_window`,
+              `rk4_window_batch` at 32768 envs, `run_trajectory` over
+              tests/test_native.py's 30 windows, < 5e-8 of LSODA): each
+              kernel once per call.
+
 Every line carries `at_s`, the seconds since the script started. The
-float64 LSODA truths of phases 4, 8, 12, 19 and 22 run in worker processes
-from the start (`prefetch_truths`), beside the build and the first phases.
+float64 LSODA truths of phases 4, 8, 12, 19, 22 and 36 run in worker
+processes from the start (`prefetch_truths`), beside the build and the
+first phases.
 
 A phase that fails ends the run: one line ``[failed] {"phase": ...,
 "error": "<type>: <message>", "at_s": ...}`` names it (the phase begun last,
@@ -200,10 +224,11 @@ A phase that fails ends the run: one line ``[failed] {"phase": ...,
 subprocess of phases 28-35 that outlives its timeout is stopped, and the
 error names the phase, the job and the end of its stderr (`wait_for`).
 
-Then `[total]`, the kernel table as one JSON line (each kernel with its
+Then `[total]`, the kernel table as one JSON line (K1-K3 each with its
 bound and its lane-issue bound from `pvderx_torch.diag.roofline`:
 operations / (132 SMs * 128 FP32 lanes * max SM clock), and the launches of
-the learner phases and of phases 19-35), the card line, and the device
+the learner phases and of phases 19-35; N1-N4 with their float64 bounds,
+`roofline.native_bound_ms`, at 32768 envs), the card line, and the device
 line.
 Needs one CUDA card; imports torch, numpy, scipy and pvderx_torch only
 (gymnasium if installed).
@@ -411,7 +436,8 @@ def require_bitwise(what: str, err: float) -> None:
 # while the kernels build; `_truth` takes a started one's result, or
 # computes it here.
 TRUTH_KEYS = (("gate", "10", 120), ("gate", "50", 120),
-              ("fleet_gate", FLEET_M, 36), ("sag", 90), ("sim", 180))
+              ("fleet_gate", FLEET_M, 36), ("sag", 90), ("sim", 180),
+              ("native_trajectory", 30))
 _TRUTH_JOBS = {}
 
 
@@ -429,6 +455,8 @@ def _truth_job(key):
             *oracle.fleet_gate_scenario(p, *args))
     elif kind == "sag":
         truth = oracle.run_trajectory(p, [_sag_exog(k) for k in range(*args)])
+    elif kind == "native_trajectory":
+        truth = oracle.run_trajectory(p, _native_trajectory_exogs(*args))
     else:
         truth = oracle.run_trajectory(p, _sim_exogs(*args))
     return truth, time.perf_counter() - t
@@ -852,15 +880,32 @@ def check_df_kernel(device, cases=DF_CASES, n_sub=DF_CHECK_SUB,
     return worst, plain_ms
 
 
+def rk4_window_truth(preset, kw, y, t0, pp, uu, n_sub):
+    """`oracle.rk4_window_np` of every env of a `window_inputs` batch (the
+    case's ``kw``), in float64 on the host: [n, n_s]."""
+    import dataclasses
+
+    from pvderx_torch import make_params, nominal_exog, oracle
+    from pvderx_torch.ops.window import P_FIELDS, U_FIELDS
+
+    y0, t, p_np, u_np = (a.double().cpu().numpy() for a in (y, t0, pp, uu))
+    p0 = make_params(preset, **kw.get("p_over", {}))
+    u0 = dataclasses.replace(nominal_exog(), **kw.get("u_over", {}))
+    return np.stack([oracle.rk4_window_np(
+        y0[e], float(t[e]), DT, n_sub,
+        dataclasses.replace(p0, **{f: float(p_np[j, e])
+                                   for j, f in enumerate(P_FIELDS)}),
+        dataclasses.replace(u0, **{f: float(u_np[j, e])
+                                   for j, f in enumerate(U_FIELDS)}))
+        for e in range(len(y0))])
+
+
 def check_df_f64(device, cases=KERNEL_CASES, n=4, n_sub=N_SUB):
     """Phase 11: the df32 kernel vs the float64 RK4 window at the same
     f32-rounded inputs (lo = 0), and the f32 kernel beside it, which must
     miss the bound. Returns (df32 error, f32 error)."""
-    import dataclasses
-
-    from pvderx_torch import make_params, nominal_exog, oracle
     from pvderx_torch.ops.dualfloat import rk4_window_batch_df
-    from pvderx_torch.ops.window import P_FIELDS, U_FIELDS, rk4_window_batch
+    from pvderx_torch.ops.window import rk4_window_batch
 
     worst = worst32 = 0.0
     for i, (name, preset, _, kw) in enumerate(cases):
@@ -870,18 +915,9 @@ def check_df_f64(device, cases=KERNEL_CASES, n=4, n_sub=N_SUB):
         y32 = rk4_window_batch(y, t0, pp, uu, **wkw)
         got = (hi.double() + lo.double()).cpu().numpy()
         got32 = y32.double().cpu().numpy()
-        y0, t, p_np, u_np = (a.double().cpu().numpy() for a in (y, t0, pp, uu))
-        p0 = make_params(preset, **kw.get("p_over", {}))
-        u0 = dataclasses.replace(nominal_exog(), **kw.get("u_over", {}))
-        err = err32 = 0.0
-        for e in range(n):
-            pe = dataclasses.replace(
-                p0, **{f: float(p_np[j, e]) for j, f in enumerate(P_FIELDS)})
-            ue = dataclasses.replace(
-                u0, **{f: float(u_np[j, e]) for j, f in enumerate(U_FIELDS)})
-            want = oracle.rk4_window_np(y0[e], float(t[e]), DT, n_sub, pe, ue)
-            err = max(err, float(np.abs(got[e] - want).max()))
-            err32 = max(err32, float(np.abs(got32[e] - want).max()))
+        want = rk4_window_truth(preset, kw, y, t0, pp, uu, n_sub)
+        err = float(np.abs(got - want).max())
+        err32 = float(np.abs(got32 - want).max())
         phase("df_f64", case=name, n=n, n_ph=n_ph, n_sub=n_sub,
               max_abs_err=err, tol=DF_F64_TOL, f32_kernel_err=err32)
         if not (np.isfinite(err) and err <= DF_F64_TOL):
@@ -2915,16 +2951,460 @@ def run_notebooks(device, card, tiny=False, timeout=600):
     return books
 
 
+# ---------------------------------------------------------------------------
+# phase 36: the float64 engine (`pvderx_torch.native`, kernels N1-N4)
+# ---------------------------------------------------------------------------
+# tests/test_native.py's bounds: the RHS and the RK4 window 1e-12 (:36, :45;
+# here against the plain versions, as assert_allclose reads them: |a - b|
+# <= tol + tol |b|), DP5(4) 1e-8 of LSODA per window (:75), the trajectory
+# 5e-8 (:115), the steady state 1e-9 of fsolve with a residual < 1e-9
+# (:84-85); N1 against the float64 RK4 window on phase 11's cases as K3
+NATIVE_TOL = 1e-12
+NATIVE_DP54_TOL = 1e-8
+NATIVE_TRAJ_TOL = 5e-8
+NATIVE_SS_TOL = 1e-9
+NATIVE_EVENTFUL = dict(v_g=0.8, s_irr=700.0, q_ref=0.1, g_load=0.2,
+                       b_load=-0.05, v_g2=0.05, phi_g2=0.7, dw_g=0.004,
+                       t_g=0.5)               # tests/test_native.py:20-21
+NATIVE_SAG_WINDOWS = 12                       # tests/test_native.py:64-76
+NATIVE_RESET_ITERS = 20                       # env.core.reset's Newton
+
+
+def _native_trajectory_exogs(n=30):
+    """tests/test_native.py:104-115's schedule: 0.7 pu in windows 10-19."""
+    import dataclasses
+
+    from pvderx_torch import nominal_exog
+
+    u = nominal_exog()
+    return [dataclasses.replace(u, v_g=0.7) if 10 <= k < 20 else u
+            for k in range(n)]
+
+
+def _close_err(got, want, tol):
+    """(max |got - want|, whether |got - want| <= tol + tol |want|
+    everywhere), on float64 tensors or arrays."""
+    got, want = (torch.as_tensor(a).double().cpu() for a in (got, want))
+    diff = (got - want).abs()
+    ok = bool(torch.isfinite(got).all()) and bool(
+        (diff <= tol + tol * want.abs()).all())
+    return float(diff.max()), ok
+
+
+def _native_packs(p, u, n, device):
+    """Shared params / exog expanded to n envs: float64 [29, n], [15, n]."""
+    from pvderx_torch import native
+
+    return (native.pack_params(p, device)[:, None].expand(-1, n).contiguous(),
+            native.pack_exog(u, device)[:, None].expand(-1, n).contiguous())
+
+
+def _f64_inputs(preset, n, seed, device, **kw):
+    """`window_inputs` (float32, as the float32 kernels take them) and the
+    same values in float64: (n_ph, f32 tuple, f64 tuple)."""
+    n_ph, *f32 = window_inputs(preset, n, seed, device, **kw)
+    return n_ph, f32, [a.double() for a in f32]
+
+
+def check_native_rhs(device, n_states=25, n_timed=N_ENVS):
+    """N4 against its plain version and the numpy oracle: presets 10, 50,
+    250 at the eventful exog, 25 states each, and the tripped / const-Vdc
+    case; then ms per launch at ``n_timed`` envs. Returns (max error,
+    {ms, plain_ms, n})."""
+    import dataclasses
+
+    from pvderx_torch import make_params, nominal_exog, oracle
+    from pvderx_torch.native import kernels
+
+    cuda = torch.device(device).type == "cuda"
+    cases = [(pr, make_params(pr),
+              dataclasses.replace(nominal_exog(), **NATIVE_EVENTFUL), 0.123,
+              make_params(pr)) for pr in ("10", "50", "250")]
+    cases.append(("tripped_const_vdc", make_params("50", const_vdc=1.0),
+                  dataclasses.replace(nominal_exog(p_ref=0.5), conn=0.0,
+                                      ces=1.0), 0.0, make_params("50")))
+    worst = 0.0
+    for name, p, u, t, p_ss in cases:
+        y_ss = oracle.steady_state(p_ss, nominal_exog())
+        k = n_states if name != "tripped_const_vdc" else 1
+        ys = y_ss + np.random.default_rng(42).normal(
+            0.0, 0.05 if k > 1 else 0.0, (k, y_ss.size))
+        y = torch.tensor(ys, dtype=torch.float64, device=device)
+        tt = torch.full((k,), t, dtype=torch.float64, device=device)
+        pk, uk = _native_packs(p, u, k, device)
+        before = kernels.rhs_batch.launches
+        got = kernels.rhs_batch(y, tt, pk, uk, n_ph=p.n_ph)
+        moved = kernels.rhs_batch.launches - before
+        plain = kernels._rhs_ref(y, tt, pk, uk, n_ph=p.n_ph)
+        err, ok = _close_err(got, plain, NATIVE_TOL)
+        err_np, ok_np = _close_err(
+            got, np.stack([oracle.rhs_np(v, t, p, u) for v in ys]), NATIVE_TOL)
+        phase("native", kernel="N4", case=name, n=k, max_abs_err=err,
+              oracle_max_abs_err=err_np, tol=NATIVE_TOL, launches=moved)
+        if not (ok and ok_np):
+            raise AssertionError(f"N4 {name}: {err:.3e} / {err_np:.3e} > "
+                                 f"{NATIVE_TOL} (rtol and atol)")
+        if cuda and moved != 1:
+            raise AssertionError(f"N4 launch counter moved by {moved}, not 1")
+        worst = max(worst, err)
+    n_ph, _, (y, t0, pp, uu) = _f64_inputs("10", n_timed, 40, device)
+    timed = {"n": n_timed}
+    if cuda:
+        call = lambda: kernels.rhs_batch(y, t0, pp, uu, n_ph=n_ph)
+        timed["ms"] = _time_ms(call, 20, device)
+        timed["plain_ms"] = _timed(lambda: kernels._rhs_ref(
+            y, t0, pp, uu, n_ph=n_ph), device)[1]
+        phase("native", kernel="N4", case="ms_per_launch", **timed)
+    return worst, timed
+
+
+def check_native_rk4(device, n=N_ENVS, n_sub=N_SUB, cases=KERNEL_CASES,
+                     f64_n=4, timed_n=N_ENVS):
+    """N1 at full width (preset 10, n envs, n_sub) against the plain
+    float64 window; on phase 11's cases (its seeds, f64_n envs each)
+    against `oracle.rk4_window_np`, beside K3 and K1 on the same inputs;
+    ms per launch of N1, K1 and K3 at presets 10 and 50 on the same
+    inputs; the public batch against its one-env calls bit for bit.
+    Returns (max error vs plain, {timings})."""
+    import dataclasses
+
+    from pvderx_torch import make_params, native, nominal_exog, oracle
+    from pvderx_torch.native import kernels
+    from pvderx_torch.ops.dualfloat import rk4_window_batch_df
+    from pvderx_torch.ops.window import rk4_window_batch, rk4_window_batch_ref
+
+    cuda = torch.device(device).type == "cuda"
+    wkw = dict(n_sub=n_sub, dt=DT)
+    n_ph, _, (y, t0, pp, uu) = _f64_inputs("10", n, 60, device)
+    before = kernels.rk4_batch.launches
+    got = kernels.rk4_batch(y, t0, pp, uu, n_ph=n_ph, **wkw)
+    moved = kernels.rk4_batch.launches - before
+    plain, plain_ms = _timed(lambda: rk4_window_batch_ref(
+        y, t0, pp, uu, n_ph=n_ph, **wkw), device)
+    err, ok = _close_err(got, plain, NATIVE_TOL)
+    phase("native", kernel="N1", case="preset10_main", n=n, n_sub=n_sub,
+          max_abs_err=err, tol=NATIVE_TOL, launches=moved, plain_ms=plain_ms)
+    if not ok:
+        raise AssertionError(f"N1 vs plain: {err:.3e} > {NATIVE_TOL}")
+    if cuda and moved != 1:
+        raise AssertionError(f"N1 launch counter moved by {moved}, not 1")
+
+    worst_f64 = 0.0
+    for i, (name, preset, _, kw) in enumerate(cases):
+        n_ph_c, f32, f64 = _f64_inputs(preset, f64_n, 200 + i, device, **kw)
+        ckw = dict(n_ph=n_ph_c, **wkw)
+        n1 = kernels.rk4_batch(*f64, **ckw).cpu().numpy()
+        hi, lo = rk4_window_batch_df(f32[0], torch.zeros_like(f32[0]),
+                                     *f32[1:], **ckw)
+        k3 = (hi.double() + lo.double()).cpu().numpy()
+        k1 = rk4_window_batch(*f32, **ckw).double().cpu().numpy()
+        want = rk4_window_truth(preset, kw, *f64, n_sub)
+        errs = [float(np.abs(o - want).max()) for o in (n1, k3, k1)]
+        phase("native", kernel="N1", case=f"f64_{name}", n=f64_n,
+              n_sub=n_sub, max_abs_err=errs[0], tol=DF_F64_TOL,
+              k3_max_abs_err=errs[1], k1_max_abs_err=errs[2])
+        if not (np.isfinite(errs[0]) and errs[0] <= DF_F64_TOL):
+            raise AssertionError(f"N1 vs float64 RK4 {name}: {errs[0]:.3e} "
+                                 f"> {DF_F64_TOL}")
+        worst_f64 = max(worst_f64, errs[0])
+
+    # the public batch: shared params, per-env exog, a ragged N
+    p, u0 = make_params("10"), nominal_exog()
+    us = [u0, dataclasses.replace(u0, v_g=0.75, s_irr=600.0)]
+    y_ss = oracle.steady_state(p, u0)
+    ys = y_ss + np.random.default_rng(7).normal(0.0, 0.02, (5, y_ss.size))
+    t0s = np.arange(5) / 60.0
+    batch = native.rk4_window_batch(ys, t0s, DT, 36, p, [us[e % 2]
+                                                         for e in range(5)],
+                                    device=device)
+    same = all(torch.equal(batch[e], native.rk4_window(
+        ys[e], float(t0s[e]), DT, 36, p, us[e % 2], device=device))
+        for e in range(5))
+    phase("native", kernel="N1", case="batch_vs_one_env", n=5,
+          bitwise_equal=same)
+    if not same:
+        raise AssertionError("N1: the batch differs from its one-env calls")
+
+    timed = {"plain_ms": plain_ms, "f64_max_abs_err": worst_f64}
+    if cuda:
+        for preset, seed in (("10", 60), ("50", 61)):
+            n_ph_c, f32, f64 = _f64_inputs(preset, timed_n, seed, device)
+            ckw = dict(n_ph=n_ph_c, **wkw)
+            lo = torch.zeros_like(f32[0])
+            timed[f"preset{preset}"] = {
+                "n1_ms": _time_ms(lambda: kernels.rk4_batch(*f64, **ckw), 5,
+                                  device),
+                "k1_ms": _time_ms(lambda: rk4_window_batch(*f32, **ckw), 20,
+                                  device),
+                "k3_ms": _time_ms(lambda: rk4_window_batch_df(
+                    f32[0], lo, *f32[1:], **ckw), 10, device)}
+        timed["ms"] = timed["preset10"]["n1_ms"]
+        phase("native", kernel="N1", case="ms_per_launch", n=timed_n,
+              n_sub=n_sub, **{k: timed[k] for k in ("preset10", "preset50")})
+    return err, timed
+
+
+def _warp_efficiency(tries: np.ndarray) -> float:
+    """Σ tries / (32 · Σ over warps of the warp's most tries): the share of
+    a DP5(4) kernel's issued lanes that did work, one thread per env."""
+    pad = -len(tries) % 32
+    w = np.concatenate([tries, np.zeros(pad, tries.dtype)]).reshape(-1, 32)
+    return float(tries.sum() / (32.0 * w.max(1).sum()))
+
+
+def check_native_dp54(device, presets=("10", "50"),
+                      windows=NATIVE_SAG_WINDOWS, n=N_ENVS):
+    """N2 on the sag of tests/test_native.py:64-76 at each preset, every
+    window from the kernel's state against LSODA (<= 1e-8), its accepted
+    steps beside the plain version's on the same inputs (the windows as one
+    batch), ms per window; then one window at n envs (preset 10,
+    `window_inputs`): ms, steps, the warps' efficiency, against the plain
+    version. Returns (max error vs LSODA, {timings and the run's tries})."""
+    import dataclasses
+
+    from pvderx_torch import make_params, nominal_exog, oracle
+    from pvderx_torch.native import kernels
+
+    cuda = torch.device(device).type == "cuda"
+    worst = 0.0
+    for preset in presets:
+        p = make_params(preset)
+        u = nominal_exog()
+        u_sag = dataclasses.replace(u, v_g=0.6)
+        y = oracle.steady_state(p, u)
+        ins, steps, ms, errs = [], [], [], []
+        for k in range(windows):
+            uu = u_sag if 4 <= k < 8 else u
+            t = k * DT
+            y_l = oracle.integrate_window(y, t, DT, p, uu)
+            args = (torch.tensor(y[None], device=device),
+                    torch.tensor([t], dtype=torch.float64, device=device),
+                    *_native_packs(p, uu, 1, device))
+            ins.append(args)
+            (y1, st, _), t_ms = _timed(lambda: kernels.dp54_batch(
+                *args, n_ph=p.n_ph, dt=DT), device)
+            y = y1[0].cpu().numpy()
+            steps.append(int(st[0]))
+            ms.append(t_ms)
+            errs.append(float(np.abs(y - y_l).max()))
+        cat = [torch.cat([a[i] for a in ins], -1 if i > 1 else 0)
+               for i in range(4)]
+        _, plain_steps, _ = kernels._dp54_window_ref(*cat, n_ph=p.n_ph, dt=DT)
+        plain_steps = plain_steps.cpu().tolist()
+        err = max(errs)
+        phase("native", kernel="N2", case=f"sag_preset{preset}",
+              windows=windows, max_abs_err=err, tol=NATIVE_DP54_TOL,
+              steps=steps, plain_steps=plain_steps,
+              steps_equal=steps == plain_steps, ms_per_window=ms)
+        if not (np.isfinite(err) and err <= NATIVE_DP54_TOL
+                and min(steps) > 0):
+            raise AssertionError(f"N2 sag preset {preset}: {err:.3e} > "
+                                 f"{NATIVE_DP54_TOL} (steps {steps})")
+        worst = max(worst, err)
+
+    n_ph, _, (y, t0, pp, uu) = _f64_inputs("10", n, 80, device)
+    (y1, st, tr), ms = _timed(lambda: kernels.dp54_batch(
+        y, t0, pp, uu, n_ph=n_ph, dt=DT), device)
+    (y1p, stp, _), plain_ms = _timed(lambda: kernels._dp54_window_ref(
+        y, t0, pp, uu, n_ph=n_ph, dt=DT), device)
+    st, tr, stp = (a.cpu().numpy() for a in (st, tr, stp))
+    diff = float((y1 - y1p).abs().max())
+    out = dict(n=n, ms=ms, plain_ms=plain_ms, tries=int(tr.sum()),
+               steps_min=int(st.min()), steps_mean=float(st.mean()),
+               steps_max=int(st.max()), max_abs_diff_plain=diff,
+               steps_equal_share=float((st == stp).mean()),
+               warp_efficiency=_warp_efficiency(tr))
+    phase("native", kernel="N2", case="one_window_preset10", **out)
+    if st.min() < 0 or not diff <= NATIVE_DP54_TOL:
+        raise AssertionError(f"N2 at {n} envs: steps {st.min()}, "
+                             f"{diff:.3e} from the plain version")
+    return worst, out
+
+
+def check_native_newton(device, n=N_ENVS, reset_iters=NATIVE_RESET_ITERS):
+    """N3: `steady_state` at presets 10 and 50 against the oracle's fsolve
+    (<= 1e-9, residual < 1e-9); then n envs of preset 10 with
+    `window_inputs`' per-env params from the nominal guess: ms, iterations,
+    against the plain version (<= 1e-9) and beside the reset's Newton
+    (`env.core.steady_state`, the complex-step Newton of `ode/newton.py`)
+    at the same N. Returns (max error vs fsolve, {timings and the run's
+    iterations})."""
+    from pvderx_torch import make_params, native, nominal_exog, oracle
+    from pvderx_torch.env import core
+    from pvderx_torch.native import kernels
+    from pvderx_torch.ops.window import P_FIELDS, U_FIELDS, unpack_struct
+    from pvderx_torch.params import DERParams, Exog
+    from pvderx_torch.physics import rhs_core
+
+    worst = 0.0
+    for preset in ("10", "50"):
+        p, u = make_params(preset), nominal_exog()
+        got = native.steady_state(p, u, device=device).cpu().numpy()
+        err = float(np.abs(got - oracle.steady_state(p, u)).max())
+        res = float(np.abs(oracle.rhs_np(got, 0.0, p, u)).max())
+        phase("native", kernel="N3", case=f"steady_state_preset{preset}",
+              max_abs_err=err, tol=NATIVE_SS_TOL, residual=res)
+        if not (err <= NATIVE_SS_TOL and res < NATIVE_SS_TOL):
+            raise AssertionError(f"N3 preset {preset}: {err:.3e} from "
+                                 f"fsolve, residual {res:.3e}")
+        worst = max(worst, err)
+
+    p = make_params("10")
+    guess = rhs_core.steady_state_guess(p, nominal_exog(), np)
+    n_ph, _, (_, _, pp, uu) = _f64_inputs("10", n, 90, device)
+    y0 = torch.tensor(guess, device=device).expand(n, -1).contiguous()
+    (y, it), ms = _timed(lambda: kernels.newton_batch(y0, pp, uu, n_ph=n_ph),
+                         device)
+    (yp, itp), plain_ms = _timed(lambda: kernels._newton_steady_ref(
+        y0, pp, uu, n_ph=n_ph), device)
+    der = unpack_struct(DERParams, pp, P_FIELDS, n_ph=n_ph)
+    exog = unpack_struct(Exog, uu, U_FIELDS)
+    (yr, rr), reset_ms = _timed(lambda: core.steady_state(
+        der, exog, iters=reset_iters), device)
+    t = torch.zeros(n, dtype=torch.float64, device=device)
+    resid = float(kernels._rhs_ref(y, t, pp, uu, n_ph=n_ph).abs().max())
+    it = it.cpu().numpy()
+    out = dict(n=n, ms=ms, plain_ms=plain_ms, reset_newton_ms=reset_ms,
+               reset_newton_iters=reset_iters,
+               iterations=int(it[it >= 0].sum()), iters_min=int(it.min()),
+               iters_max=int(it.max()), residual=resid,
+               max_abs_diff_plain=float((y - yp).abs().max()),
+               iters_equal_share=float((it == itp.cpu().numpy()).mean()),
+               max_abs_diff_reset=float((y - yr).abs().max()),
+               reset_residual=float(rr.max()))
+    phase("native", kernel="N3", case="batch_preset10", **out)
+    if it.min() < 0 or not (out["max_abs_diff_plain"] <= NATIVE_SS_TOL
+                            and resid < NATIVE_SS_TOL):
+        raise AssertionError(f"N3 at {n} envs: iterations {it.min()}, "
+                             f"{out['max_abs_diff_plain']:.3e} from the "
+                             f"plain version, residual {resid:.3e}")
+    return worst, out
+
+
+def drive_native(device, trajectory_windows=30, batch_n=N_ENVS):
+    """The float64 engine's public path once, its launch counters set to 0
+    just before: `steady_state`, `rhs`, `rk4_window`, `rk4_window_batch`
+    at batch_n envs, `run_trajectory` over tests/test_native.py's 30
+    windows against the LSODA trajectory (< 5e-8). Returns (launches per
+    kernel, their wanted counts, the trajectory's error)."""
+    import dataclasses
+
+    from pvderx_torch import make_params, native, nominal_exog, oracle
+    from pvderx_torch.native import kernels
+
+    p, u = make_params("10"), nominal_exog()
+    u_sag = dataclasses.replace(u, v_g=0.7)
+    exogs = _native_trajectory_exogs(trajectory_windows)
+    ys = oracle.steady_state(p, u) + 1e-3 * np.random.default_rng(
+        5).standard_normal((batch_n, p.n_states))
+    for f in kernels.LAUNCHERS:
+        f.launches = 0
+    y0 = native.steady_state(p, u, device=device)
+    d = native.rhs(y0, 0.123, p, u_sag, device=device)
+    y1 = native.rk4_window(y0, 0.0, DT, 72, p, u_sag, device=device)
+    yb = native.rk4_window_batch(ys, 0.0, DT, N_SUB, p, u_sag, device=device)
+    tr = native.run_trajectory(p, exogs, device=device)
+    _sync(device)
+    launches = {f.__name__: f.launches for f in kernels.LAUNCHERS}
+    want = dict(rhs_batch=1, rk4_batch=2, dp54_batch=trajectory_windows,
+                newton_batch=2)
+    truth = (_truth("native_trajectory", trajectory_windows)[0]
+             if trajectory_windows == 30 else
+             oracle.run_trajectory(p, exogs))
+    err = float(np.abs(tr.cpu().numpy() - truth).max())
+    finite = all(bool(torch.isfinite(a).all()) for a in (d, y1, yb, tr))
+    phase("native", kernel="path", launches=launches, want=want,
+          trajectory_windows=trajectory_windows, trajectory_max_abs_err=err,
+          tol=NATIVE_TRAJ_TOL, finite=finite,
+          devices=sorted({a.device.type for a in (y0, d, y1, yb, tr)}))
+    if not (finite and err < NATIVE_TRAJ_TOL):
+        raise AssertionError(f"native trajectory vs LSODA: {err:.3e} >= "
+                             f"{NATIVE_TRAJ_TOL} (finite {finite})")
+    if torch.device(device).type == "cuda" and launches != want:
+        raise AssertionError(f"native launches {launches}, want {want}")
+    return launches, err
+
+
+def run_native(device, card, sizes=None):
+    """Phase 36: the float64 engine, checks first (the kernels against
+    their plain versions and the oracle), then its public path with the
+    counters set to 0. ``sizes``: smaller keyword arguments for a CPU
+    rehearsal ({"rhs": {...}, "rk4": ..., "dp54": ..., "newton": ...,
+    "drive": ...}). Returns {kernel: its numbers for the kernels line}."""
+    sizes = sizes or {}
+    t = time.perf_counter()
+    rhs_err, rhs_t = check_native_rhs(device, **sizes.get("rhs", {}))
+    rk4_err, rk4_t = check_native_rk4(device, **sizes.get("rk4", {}))
+    dp54_err, dp54_t = check_native_dp54(device, **sizes.get("dp54", {}))
+    ss_err, ss_t = check_native_newton(device, **sizes.get("newton", {}))
+    launches, traj_err = drive_native(device, **sizes.get("drive", {}))
+    phase("native", card=card, seconds=time.perf_counter() - t)
+    return dict(
+        rhs=dict(err=rhs_err, launches=launches["rhs_batch"], **rhs_t),
+        rk4=dict(err=rk4_err, launches=launches["rk4_batch"], **rk4_t),
+        dp54=dict(err=dp54_err, launches=launches["dp54_batch"],
+                  trajectory_err=traj_err, **dp54_t),
+        newton=dict(err=ss_err, launches=launches["newton_batch"], **ss_t))
+
+
+def native_kernel_rows(nat, chip, n=N_ENVS):
+    """The kernels line's rows of N1-N4 from `run_native`'s numbers: each
+    with its float64 bound (`roofline.native_bound_ms`) at its timed shape
+    (preset 10, ``n`` envs), the adaptive kernels' work as this run's envs
+    took it. Prints the bounds as one line."""
+    from pvderx_torch.diag import roofline
+
+    nb = {"rhs": roofline.native_bound_ms("rhs", n, chip=chip),
+          "rk4": roofline.native_bound_ms("rk4", n, n_sub=N_SUB, chip=chip),
+          "dp54": roofline.native_bound_ms("dp54", n,
+                                           tries=nat["dp54"]["tries"],
+                                           chip=chip),
+          "newton": roofline.native_bound_ms(
+              "newton", n, iterations=nat["newton"]["iterations"],
+              chip=chip)}
+    phase("native_bound", **nb)
+    return [{
+        "name": name,
+        "route": "cuda",
+        "source": "pvderx_torch/ops/csrc/native.cu",
+        "replaces": replaces,
+        "launches": nat[key]["launches"],
+        "max_abs_err": nat[key]["err"],
+        "ms": nat[key].get("ms"),
+        "plain_ms": nat[key].get("plain_ms"),
+        "bound_ms": nb[key]["bound_ms"],
+        "bound_by": nb[key]["bound_by"],
+        "library_ms": None,
+        "n_envs": n,
+        **extra,
+    } for name, key, replaces, extra in (
+        ("native_rhs", "rhs", "pvderx/native/src/pvderx_native.cpp:72", {}),
+        ("native_rk4_window", "rk4", "pvderx/native/src/pvderx_native.cpp:176",
+         {k: nat["rk4"].get(k) for k in ("preset10", "preset50",
+                                         "f64_max_abs_err")}),
+        ("native_dp54_window", "dp54",
+         "pvderx/native/src/pvderx_native.cpp:204",
+         {"trajectory_max_abs_err": nat["dp54"]["trajectory_err"],
+          "tries": nat["dp54"]["tries"],
+          "warp_efficiency": nat["dp54"]["warp_efficiency"]}),
+        ("native_newton_steady", "newton",
+         "pvderx/native/src/pvderx_native.cpp:300",
+         {"iterations": nat["newton"]["iterations"],
+          "reset_newton_ms": nat["newton"]["reset_newton_ms"]}))]
+
+
 def kernel_name(mangled: str) -> str:
-    """`window_kernel<3>` and the like for a window kernel's mangled or
-    demangled name; any other name as it is."""
+    """`window_kernel<3>`, `native_dp54_kernel<1>` and the like for a
+    window or float64 engine kernel's mangled or demangled name; any other
+    name as it is."""
     import re
 
-    k = re.search(r"((?:fleet_)?window(?:_df)?_kernel)I((?:Li\d+E)+)E", mangled)
+    name = r"((?:fleet_)?window(?:_df)?_kernel|native_[a-z0-9]+_kernel)"
+    k = re.search(name + r"I((?:Li\d+E)+)E", mangled)
     if k:
         args = re.findall(r"Li(\d+)E", k.group(2))
         return f"{k.group(1)}<{','.join(args)}>"
-    k = re.search(r"((?:fleet_)?window(?:_df)?_kernel)<([\d, ]+)>", mangled)
+    k = re.search(name + r"<([\d, ]+)>", mangled)
     if k:
         return f"{k.group(1)}<{k.group(2).replace(' ', '')}>"
     return mangled
@@ -2980,7 +3460,7 @@ def main() -> int:
 
 
 def run_phases(device, kind, card, clock_mhz) -> int:
-    """Phases 2-35, the kernels line, the card line and the last line."""
+    """Phases 2-36, the kernels line, the card line and the last line."""
     from pvderx_torch.diag import roofline
     from pvderx_torch.ops import _build
 
@@ -3046,6 +3526,8 @@ def run_phases(device, kind, card, clock_mhz) -> int:
     dl = dist_launches(dist_out)
     begin("notebooks")
     notebooks_out = run_notebooks(device, card)
+    begin("native")
+    native_out = run_native(device, card)
     begin("kernels_line")
     phase("total", seconds=time.perf_counter() - _T0)
 
@@ -3060,6 +3542,7 @@ def run_phases(device, kind, card, clock_mhz) -> int:
     phase("bound", bytes=k1["bytes"], ops=k1["ops"], bytes_ms=k1["bytes_ms"],
           ops_ms_at_67tflops=k1["ops_ms"],
           ops_ms_at_lane_issue=k1["issue_bound_ms"])
+    native_rows = native_kernel_rows(native_out, chip)
     ex = lambda key: {k: v["launches"][key] for k, v in examples_out.items()
                       if v["want"][key]}
     print(json.dumps({"kernels": [{
@@ -3140,7 +3623,7 @@ def run_phases(device, kind, card, clock_mhz) -> int:
             "diag_profiler_trace": prof_out["df32"]["launches"],
             "grad_guard": debug_out["grad_guard"]["k3"]["launches"],
             **dl["k3"]},
-    }]}), flush=True)
+    }, *native_rows]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -42,7 +42,7 @@ _LAZY = {
 
 # submodules resolvable as attributes (`pvderx_torch.env.make_env_config`)
 _LAZY_MODULES = ("env", "sim", "scenario", "ode", "oracle", "learn", "dist",
-                 "diag", "utils", "config", "ops", "convert")
+                 "diag", "utils", "config", "ops", "convert", "native")
 
 
 def __getattr__(name):

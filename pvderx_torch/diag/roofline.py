@@ -54,6 +54,10 @@ H100 = {
     "sfu_results_per_sm_per_clock": 16,
     "max_sm_clock_hz": 1.98e9,   # nvidia-smi clocks.max.sm, H100 80GB HBM3
     "fp32_ops_per_s": 67e12,
+    # FP64 outside the tensor cores, H100 SXM5 (NVIDIA H100 Tensor Core GPU
+    # Architecture white paper, table 1: 33.5 TFLOPS; the data sheet rounds
+    # it to 34): the float64 engine's ceiling (`native_bound_ms`)
+    "fp64_ops_per_s": 33.5e12,
     "hbm_bytes_per_s": 3.35e12,
 }
 
@@ -304,6 +308,97 @@ def window_bound_ms(kernel: str, n: int, *, n_ph: int = 1, m: int = 1,
                 issue_bound_ms=1e3 * ops / lane_issue_per_s(chip))
 
 
+@functools.cache
+def native_op_counts(n_ph: int = 1) -> dict:
+    """Per-env operation counts of the float64 engine's pieces (its kernels
+    N1-N4, `pvderx_torch.native.kernels`), by `OpCounter` on their plain
+    versions' arithmetic at one env, float64, preset "10" (1-φ) or "50"
+    (3-φ): ``prep`` the window invariants, ``rot`` one grid rotation,
+    ``rhs`` one RHS evaluation given both, ``rk4_substep`` one Kahan RK4
+    substep (4 RHS evaluations, 2 rotations, the stage sums and the Kahan
+    step), ``dp54_step`` one tried DP5(4) step (6 RHS evaluations and
+    their rotations, the stage sums, the error norm, the step factor),
+    ``newton_iteration`` one Newton iteration (n_s + 1 RHS evaluations and
+    rotations, the residual norm, the difference quotients, the LU solve
+    with partial pivoting counted as its compares, divides, multiplies and
+    subtractions, the update) and ``newton_check`` one residual check."""
+    from pvderx_torch.native.kernels import _dp54_factor, _dp54_step
+    from pvderx_torch.params import make_params, nominal_exog
+    from pvderx_torch.physics import rhs_core
+    from pvderx_torch.physics.xp import TorchXP
+
+    p0 = make_params("10" if n_ph == 1 else "50")
+    p = p0.to(torch.float64, "cpu")
+    u = nominal_exog().to(torch.float64, "cpu")
+    xp = TorchXP(torch.float64, "cpu")
+    n_s = p0.n_states
+    y = torch.zeros(n_s, dtype=torch.float64)
+    t = torch.tensor(0.0, dtype=torch.float64)
+    h = torch.tensor(1.0 / 60.0 / 400.0, dtype=torch.float64)
+
+    def total(fn):
+        with OpCounter() as c:
+            fn()
+        return c.classes()["total"]
+
+    prep = rhs_core.prep_invariants(p, u, xp)
+    rot = rhs_core.grid_rot(t, p, u, xp)
+    n_prep = total(lambda: rhs_core.prep_invariants(p, u, xp))
+    n_rot = total(lambda: rhs_core.grid_rot(t, p, u, xp))
+    n_rhs = total(lambda: rhs_core.rhs(y, t, p, u, xp, prep, rot))
+    f = lambda yy, tt: rhs_core.rhs(yy, tt, p, u, xp, prep)
+    k1 = f(y, t)
+    n_dp54 = total(lambda: _dp54_factor(_dp54_step(f, y, k1, t, h, 1e-10,
+                                                   1e-10)[2]))
+    # the stage times t0 + s·h, + h/2, + h (4); per state the stage sums
+    # y + (h/2)k and y + h k (2 each, 3 stages), the RK4 sum
+    # k1 + 2k2 + 2k3 + k4 (5) and the Kahan step (5)
+    rk4 = 2 * n_rot + 4 * n_rhs + 4 + 16 * n_s
+    # LU: the pivot compares, then per row below the pivot one divide, a
+    # multiply and a subtract per remaining column and for b; back
+    # substitution: a multiply and a subtract per known entry, one divide
+    lu = sum((n_s - c - 1) * (1 + 1 + 2 * (n_s - c + 1))
+             for c in range(n_s)) + sum(2 * (n_s - r - 1) + 1
+                                        for r in range(n_s))
+    check = n_rot + n_rhs + n_s                    # f(y), max |f|
+    # column j: d_j (max, mul), y_j + d_j, then (f1 - f0) / d_j per row
+    newton = check + n_s * (n_rot + n_rhs + 3 + 2 * n_s) + lu + 2 * n_s
+    return dict(prep=n_prep, rot=n_rot, rhs=n_rhs, rk4_substep=rk4,
+                dp54_step=n_dp54, newton_iteration=newton,
+                newton_check=check)
+
+
+def native_bound_ms(kernel: str, n: int, *, n_ph: int = 1, n_sub: int = 0,
+                    tries: int = 0, iterations: int = 0,
+                    chip: dict = H100) -> dict:
+    """The least time one launch of a float64 engine kernel over ``n`` envs
+    can take: its float64 bytes (each input read once, each output written
+    once) over the memory rate and its operations (`native_op_counts`) over
+    the FP64 rate, the larger as ``bound_ms`` with ``bound_by``. The work
+    of the adaptive kernels is this run's: ``tries`` the DP5(4) steps the
+    envs tried in all (``"dp54"``), ``iterations`` the Newton iterations
+    they took in all (``"newton"``). ``kernel``: ``"rhs"`` (N4), ``"rk4"``
+    (N1), ``"dp54"`` (N2), ``"newton"`` (N3)."""
+    c = native_op_counts(n_ph)
+    n_s = 6 * n_ph + 5
+    packs = 29 + 15
+    once = c["prep"] + c["rot"] + c["rhs"]
+    ops, reads, writes, ints = {
+        "rhs": (n * once, n_s + 1 + packs, n_s, 0),
+        "rk4": (n * (c["prep"] + c["rot"] + n_sub * c["rk4_substep"]),
+                n_s + 1 + packs, n_s, 0),
+        "dp54": (n * once + tries * c["dp54_step"], n_s + 1 + packs, n_s, 2),
+        "newton": (n * (c["prep"] + c["newton_check"])
+                   + iterations * c["newton_iteration"], n_s + packs, n_s, 1),
+    }[kernel]
+    n_bytes = n * (8 * (reads + writes) + 4 * ints)
+    bytes_ms = 1e3 * n_bytes / chip["hbm_bytes_per_s"]
+    ops_ms = 1e3 * ops / chip["fp64_ops_per_s"]
+    return dict(bytes=n_bytes, ops=ops, bytes_ms=bytes_ms, ops_ms=ops_ms,
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+
+
 def lane_utilization(env_steps_per_s: float, *, n_sub: int, n_ph: int = 1,
                      m: int = 1, chip: dict = H100) -> dict:
     """A measured env-steps/s (one window each) against the ceilings: the
@@ -332,4 +427,5 @@ def lane_utilization(env_steps_per_s: float, *, n_sub: int, n_ph: int = 1,
 
 __all__ = ["H100", "OpCounter", "at_clock", "lane_issue_per_s",
            "sfu_lane_issues", "substep_op_count", "ops_per_substep",
-           "window_hbm_bytes", "window_bound_ms", "lane_utilization"]
+           "window_hbm_bytes", "window_bound_ms", "native_op_counts",
+           "native_bound_ms", "lane_utilization"]

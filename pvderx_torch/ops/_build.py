@@ -23,7 +23,8 @@ BUILD_DIR = Path(__file__).parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_PTR, _INT, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_PTR, _INT, _F32, _F64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                          ctypes.c_double)
 # (argtypes, restype) of every extern "C" entry of csrc/*.cu
 ENTRIES = {
     # (y, t0, p, u, out, n, n_ph, n_sub, h, h/2, h/6, stream)
@@ -35,6 +36,18 @@ ENTRIES = {
     #  stream)
     "pvderx_rk4_window_df": (
         [_PTR] * 7 + [_INT] * 3 + [_F32] * 2 + [_PTR], _INT),
+    # the float64 engine (native.cu):
+    # (y, t, p, u, dy, n, n_ph, stream)
+    "pvderx_native_rhs": ([_PTR] * 5 + [_INT] * 2 + [_PTR], _INT),
+    # (y, t0, p, u, out, n, n_ph, n_sub, h, h/2, h/6, stream)
+    "pvderx_native_rk4_window": (
+        [_PTR] * 5 + [_INT] * 3 + [_F64] * 3 + [_PTR], _INT),
+    # (y, t0, p, u, out, steps, tries, n, n_ph, dt, rtol, atol, stream)
+    "pvderx_native_dp54_window": (
+        [_PTR] * 7 + [_INT] * 2 + [_F64] * 3 + [_PTR], _INT),
+    # (y, p, u, out, iters, n, n_ph, max_iters, tol, stream)
+    "pvderx_native_newton_steady": (
+        [_PTR] * 5 + [_INT] * 3 + [_F64, _PTR], _INT),
     "pvderx_error_string": ([_INT], ctypes.c_char_p),
 }
 

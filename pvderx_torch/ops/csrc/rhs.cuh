@@ -3,10 +3,11 @@
 // A device restatement of pvderx_torch/physics/rhs_core.py's hoisted path,
 // written once over the scalar type T: float for the float32 kernels
 // (window.cu, fleet_window.cu), df (df.cuh, double-float32) for the df32
-// kernel (window_df.cu) -- one set of equations, as rhs_core runs on one
-// namespace per precision. Literals go through lit<T>(double); the
-// transcendentals (sqrt_t, exp_t, sincos_t, pow_sat, max_t, min_t) are
-// overloaded per type. Split as rhs_core splits it:
+// kernel (window_df.cu), double for the float64 engine (native.cu) -- one
+// set of equations, as rhs_core runs on one namespace per precision.
+// Literals go through lit<T>(double); the transcendentals (sqrt_t, exp_t,
+// sincos_t, pow_sat, max_t, min_t) are overloaded per type. Split as
+// rhs_core splits it:
 //   - pcc_voltage: the PCC voltage from the feeder (grid Thevenin source and
 //     local load, `Feeder`) and the injected current;
 //   - rhs_given_v: algebra_given_v + rhs_from_algebra of one DER (`Unit`)
@@ -68,6 +69,20 @@ __device__ __forceinline__ float pow_sat(float x) {
 __device__ __forceinline__ float max_t(float a, float b) { return fmaxf(a, b); }
 __device__ __forceinline__ float min_t(float a, float b) { return fminf(a, b); }
 
+// The float64 transcendentals: the full-range double library functions.
+// pow_sat is pow(x, -1/16) itself, as pvderx_native.cpp computes it (the
+// exp2/log2 form above would cost the float64 engine its 1e-12 agreement).
+template <>
+__host__ __device__ constexpr double lit<double>(double x) { return x; }
+__device__ __forceinline__ double sqrt_t(double x) { return sqrt(x); }
+__device__ __forceinline__ double exp_t(double x) { return exp(x); }
+__device__ __forceinline__ void sincos_t(double x, double* s, double* c) {
+  sincos(x, s, c);
+}
+__device__ __forceinline__ double pow_sat(double x) { return pow(x, -0.0625); }
+__device__ __forceinline__ double max_t(double a, double b) { return fmax(a, b); }
+__device__ __forceinline__ double min_t(double a, double b) { return fmin(a, b); }
+
 // Window invariants of a feeder: grid source, grid/load admittance and the
 // negative-sequence source phasor (rhs_core.Prep's y_g, inv_y_tot, v2).
 template <class T, int N>
@@ -91,7 +106,8 @@ struct Unit {
   T ak_re[N], ak_im[N];   // phase rotators (3-phase only)
 };
 
-// P(field) / U(field) read one DER's params / exog (float32, exact in T).
+// P(field) / U(field) read one DER's params / exog (float32, exact in T;
+// double in the float64 engine).
 template <class T, int N, class PF, class UF>
 __device__ __forceinline__ void load_unit(Unit<T, N>& w, PF P, UF U) {
   w.rf = T(P(RF));
@@ -527,16 +543,18 @@ __device__ __forceinline__ void rhs_given_v(const T (&y)[6 * N + 5],
 }
 
 // The times of substep s's stages: t + h/2 (k2 and k3) and t + h (k4), with
-// t = t0 + f32(s)*h. One expression wherever a phasor's time is computed, so
+// t = t0 + T(s)*h. One expression wherever a phasor's time is computed, so
 // that a phasor computed for substep s on another lane has the same bits.
-__device__ __forceinline__ void stage_times(float t0, int s, float h,
-                                            float hh, float& th, float& t4) {
-  const float t = t0 + static_cast<float>(s) * h;
+template <class T>
+__device__ __forceinline__ void stage_times(T t0, int s, T h, T hh, T& th,
+                                            T& t4) {
+  const T t = t0 + static_cast<T>(s) * h;
   th = t + hh;
   t4 = t + h;
 }
 
-// One float32 control window of n_sub Kahan-compensated RK4 substeps of
+// One control window (T = float, or double for native.cu) of n_sub
+// Kahan-compensated RK4 substeps of
 // rhs(ys, rot_re, rot_im, dy). phasors(s, rh_re, rh_im, r4_re, r4_im) gives
 // substep s's grid phasors of k2/k3 and of k4; k4's is the next substep's k1
 // (r1 on entry: t0's), as rhs_core.grid_rot is shared in the plain version.
@@ -552,24 +570,23 @@ __device__ __forceinline__ void stage_times(float t0, int s, float h,
 // longer schedules the phasors' sincosf and one stage's tail under the
 // next stage's work, and with two warps per scheduler that latency shows
 // (PERF.md).
-template <int NS, class Rhs, class Phasors>
-__device__ __forceinline__ void rk4_window(float (&y)[NS], float r1_re,
-                                           float r1_im, int n_sub, float h,
-                                           float hh, float h6, Rhs rhs,
-                                           Phasors phasors) {
-  float c[NS];
+template <class T, int NS, class Rhs, class Phasors>
+__device__ __forceinline__ void rk4_window(T (&y)[NS], T r1_re, T r1_im,
+                                           int n_sub, T h, T hh, T h6,
+                                           Rhs rhs, Phasors phasors) {
+  T c[NS];
 #pragma unroll
-  for (int j = 0; j < NS; ++j) c[j] = 0.0f;
+  for (int j = 0; j < NS; ++j) c[j] = T(0);
   for (int s = 0; s < n_sub; ++s) {
-    float rh_re, rh_im, r4_re, r4_im;
+    T rh_re, rh_im, r4_re, r4_im;
     phasors(s, rh_re, rh_im, r4_re, r4_im);
-    float acc[NS], ys[NS], kv[NS];
+    T acc[NS], ys[NS], kv[NS];
 #pragma unroll
     for (int j = 0; j < NS; ++j) ys[j] = y[j];
 #pragma unroll
     for (int st = 0; st < 4; ++st) {
-      const float rot_re = st == 0 ? r1_re : st == 3 ? r4_re : rh_re;
-      const float rot_im = st == 0 ? r1_im : st == 3 ? r4_im : rh_im;
+      const T rot_re = st == 0 ? r1_re : st == 3 ? r4_re : rh_re;
+      const T rot_im = st == 0 ? r1_im : st == 3 ? r4_im : rh_im;
       rhs(ys, rot_re, rot_im, kv);                   // k1 .. k4
       if (st == 0) {
 #pragma unroll
@@ -578,18 +595,18 @@ __device__ __forceinline__ void rk4_window(float (&y)[NS], float r1_re,
           ys[j] = y[j] + hh * kv[j];
         }
       } else if (st < 3) {
-        const float cs = st == 1 ? hh : h;
+        const T cs = st == 1 ? hh : h;
 #pragma unroll
         for (int j = 0; j < NS; ++j) {
-          acc[j] = acc[j] + 2.0f * kv[j];
+          acc[j] = acc[j] + T(2) * kv[j];
           ys[j] = y[j] + cs * kv[j];
         }
       } else {
 #pragma unroll
         for (int j = 0; j < NS; ++j) {
           // Kahan step, order fixed: d = delta - c; s = y + d; c = (s - y) - d
-          const float d = h6 * (acc[j] + kv[j]) - c[j];
-          const float sj = y[j] + d;
+          const T d = h6 * (acc[j] + kv[j]) - c[j];
+          const T sj = y[j] + d;
           c[j] = (sj - y[j]) - d;
           y[j] = sj;
         }

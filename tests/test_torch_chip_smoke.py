@@ -497,3 +497,88 @@ def test_torch_chip_smoke_run_cells_never_runs_a_plot_cell(monkeypatch,
     assert run_cells.main(["--device", "cpu", "--notebook",
                            "standalone_simulation"]) == 0
     assert "a plot cell ran" not in capsys.readouterr().out
+
+
+_NATIVE = "_ZN41_GLOBAL__N__3c9d0e1f_9_native_cu_5a6b7c8d"
+
+
+def test_torch_chip_smoke_ptxas_summary_reads_the_native_kernels():
+    """The build phase reports the float64 engine's kernels (N1-N4) under
+    their short names, spills included (N2 and N3 keep their vectors and
+    the Jacobian in local memory)."""
+    report = (_entry(f"{_NATIVE}17native_rhs_kernelILi1EEEvPKdS2_S2_S2_Pdi",
+                     90, 0, 0)
+              + _entry(f"{_NATIVE}17native_rk4_kernelILi3EEEvPKdS2_S2_S2_Pdiiddd",
+                       210, 0, 0)
+              + _entry(f"{_NATIVE}18native_dp54_kernelILi3EEEvPKdS2_S2_S2_PdPiS4_iddd",
+                       128, 64, 64)
+              + _entry(f"{_NATIVE}20native_newton_kernelILi1EEEvPKdS2_S2_PdPiiid",
+                       96, 8, 8))
+    got = ptxas_summary(report)
+    assert got == {
+        "native_rhs_kernel<1>": dict(registers=90, spill_stores=0,
+                                     spill_loads=0),
+        "native_rk4_kernel<3>": dict(registers=210, spill_stores=0,
+                                     spill_loads=0),
+        "native_dp54_kernel<3>": dict(registers=128, spill_stores=64,
+                                      spill_loads=64),
+        "native_newton_kernel<1>": dict(registers=96, spill_stores=8,
+                                        spill_loads=8)}
+    assert kernel_name("native_dp54_kernel<3>") == "native_dp54_kernel<3>"
+
+
+# phase 36 at tiny sizes (`run_native`'s ``sizes``)
+NATIVE_TINY = dict(
+    rhs=dict(n_states=3, n_timed=4),
+    dp54=dict(presets=("10",), windows=6, n=4),
+    newton=dict(n=4, reset_iters=4),
+    drive=dict(trajectory_windows=3, batch_n=4))
+
+
+def test_torch_chip_smoke_native_phase_runs_on_the_cpu(capsys):
+    """Phase 36 on the CPU through the plain versions: every check passes
+    (N4 and N1 against their plain versions and the oracle, N1 against the
+    float64 RK4 window on two of phase 11's cases with K1 missing the
+    bound, the batch bit for bit its one-env calls, N2 through the sag into
+    its first two windows against LSODA, N3 against fsolve, the public
+    path against LSODA), no kernel launches, and the kernels line's rows
+    carry every key of the contract with their float64 bounds."""
+    import json
+
+    import chip_smoke as cs
+    from pvderx_torch.diag import roofline
+
+    sizes = dict(NATIVE_TINY, rk4=dict(n=6, n_sub=40, cases=cs.KERNEL_CASES[:2],
+                                       f64_n=2, timed_n=4))
+    out = cs.run_native("cpu", "cpu", sizes=sizes)
+    lines = [json.loads(ln[len("[native] "):])
+             for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("[native] ")]
+    f64 = [ln for ln in lines if ln.get("case", "").startswith("f64_")]
+    assert len(f64) == 2 and all(
+        ln["max_abs_err"] <= cs.DF_F64_TOL < ln["k1_max_abs_err"]
+        and ln["k3_max_abs_err"] <= cs.DF_F64_TOL for ln in f64)
+    sag = next(ln for ln in lines if ln.get("case") == "sag_preset10")
+    assert sag["steps"] == sag["plain_steps"] and max(sag["steps"]) > 100
+    assert out["dp54"]["tries"] > 0 and out["newton"]["iterations"] > 0
+    assert {k: v["launches"] for k, v in out.items()} == dict(
+        rhs=0, rk4=0, dp54=0, newton=0)
+    rows = cs.native_kernel_rows(out, roofline.H100, n=4)
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    assert [r["name"] for r in rows] == [
+        "native_rhs", "native_rk4_window", "native_dp54_window",
+        "native_newton_steady"]
+    for r in rows:
+        assert keys <= set(r) and r["route"] == "cuda"
+        assert r["bound_ms"] > 0 and r["bound_by"] in ("bytes", "operations")
+        path, line = r["replaces"].split(":")
+        assert path == "pvderx/native/src/pvderx_native.cpp" and int(line) > 0
+
+
+def test_torch_chip_smoke_native_warp_efficiency():
+    from chip_smoke import _warp_efficiency
+
+    assert _warp_efficiency(np.full(64, 7)) == 1.0
+    tries = np.array([10] + [1] * 31 + [2] * 5)     # a warp and a ragged one
+    assert _warp_efficiency(tries) == pytest.approx(51 / (32 * (10 + 2)))

@@ -26,10 +26,6 @@ REF, PORT = ROOT / "pvderx", ROOT / "pvderx_torch"
 # reference module -> the port's counterpart, where the file names differ
 COUNTERPART = {"_pytree.py": "_struct.py"}
 
-_NATIVE = ("the C++ engine is not ported, by the north star's decision: the "
-           "port's plain torch windows serve its CPU-engine role, and the "
-           "tests hold the port against the numpy and LSODA oracles that it "
-           "is pinned to")
 _ORACLE = ("the port keeps its own `pvderx_torch/oracle.py`; the tests call "
            "the reference's numpy and scipy oracles directly")
 _TPU = "TPU-only: "
@@ -39,7 +35,6 @@ _INTERNAL = ("imported for the module's own use, not re-exported by any "
 # (reference module, name) -> why the port lacks it; a name of None
 # excludes the whole module
 EXCLUDED = {
-    ("native/__init__.py", None): _NATIVE,
     ("oracle/__init__.py", None): _ORACLE,
     ("oracle/scipy_ref.py", None): _ORACLE,
     ("oracle/supervisory_np.py", None): _ORACLE,
