@@ -1,0 +1,10 @@
+"""The share of the traced window in which no kernel, copy or set ran on
+the device, in %. Nothing where the window closed before a whole unit of
+work was traced."""
+
+
+def read(run):
+    if run.trace is None or run.trace["window_s"] <= 0 \
+            or not run.traced_steps:
+        return None
+    return 100.0 * (1.0 - run.trace["busy_s"] / run.trace["window_s"])
