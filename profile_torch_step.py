@@ -16,11 +16,16 @@ autoreset), with ``--fleet`` the fleet path (preset 10, f32, n_sub=64,
 4096 envs x 16 units, aggregate mode, zero-action policy), or with ``--df``
 the main path's config through the df32 tier (state carried as (hi, lo)):
 10 warm-up steps, 200 steps timed on the host clock without the profiler,
-then 20 steps under `torch.profiler`. Prints one JSON line: untraced ms per
-step and env-steps/s, the traced wall ms per step, device-busy ms per step
-(sum of kernel times; one stream, so kernels do not overlap), the device's
-idle share of the traced step, kernel launches per step, and the kernels
-that take the most device time.
+then two rollouts of 20 steps under `diag.profiler.trace` (idle guards
+around them; the profiler comes up during the first). Prints one JSON line:
+untraced ms per step and env-steps/s; from the second traced rollout's
+spans (`diag.profiler.records`, CUDA events), the device ms per step of
+each span of the step (``rollout``, ``rollout.policy``, ``env.step`` and
+its phases ``env.pre_window``, ``env.window``, ``env.post_window``,
+``env.autoreset``, ``rollout.stack``) and the share of its steps entered
+with the device drained; and the kernels that take the most device time
+over both traced rollouts. (`portbench`'s ``--trace 1`` gives the busy,
+idle and launch readings of a benchmark cell.)
 
 ``--sass`` builds the kernel library if needed and prints one JSON line per
 window kernel: registers and spill bytes (ptxas) and, from `cuobjdump -sass`
@@ -82,7 +87,6 @@ import tempfile
 import time
 
 import torch
-from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from pvderx_torch.diag.roofline import H100, at_clock, lane_issue_per_s
@@ -463,6 +467,39 @@ def trace_edges(card: str, reps: int) -> int:
     return 0
 
 
+def traced_spans(roll, cfg, state, obs, policy, gen) -> dict:
+    """Two rollouts of `STEPS` steps under `diag.profiler.trace`: the
+    device ms per step of each span under the second ``rollout`` span
+    (the profiler comes up during the first), the share of its
+    ``env.step`` spans entered with the device drained, and the kernels
+    that take the most device time over both."""
+    from pvderx_torch.diag.profiler import (
+        clear, device_op_summary, records, trace)
+
+    clear()
+    with tempfile.TemporaryDirectory() as d:
+        with trace(d):
+            for _ in range(2):
+                state, obs, _, _ = roll(cfg, state, obs, policy, STEPS, gen)
+        top = device_op_summary(d, top=12)
+    recs = records()
+    last = max(i for i, r in enumerate(recs) if r["name"] == "rollout")
+    under, ms, drained = {last}, {"rollout": recs[last]["device_ms"]}, []
+    for i, r in enumerate(recs[last + 1:], last + 1):
+        if r["parent"] in under:
+            under.add(i)
+            ms[r["name"]] = ms.get(r["name"], 0.0) + r["device_ms"]
+            if r["name"] == "env.step":
+                drained.append(r["drained"] is True)
+    return {
+        "span_device_ms_per_step": {k: v / STEPS for k, v in ms.items()},
+        "drained_step_share": sum(drained) / len(drained),
+        "top_kernels": [{"name": name[:80], "per_step": c / (2 * STEPS),
+                         "ms_per_step": total / (2 * STEPS)}
+                        for name, total, c in top],
+    }
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     mode = ap.add_mutually_exclusive_group()
@@ -531,37 +568,11 @@ def main() -> int:
     float(r.sum())
     untraced_ms = 1e3 * (time.perf_counter() - t) / TIMED
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        state, obs, r, _ = roll(cfg, state, obs, policy, STEPS, gen)
-        float(r.sum())
-        wall_s = time.perf_counter() - t
-
-    by_name: dict[str, list[float]] = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            rec = by_name.setdefault(e.name, [0, 0.0])
-            rec[0] += 1
-            rec[1] += e.time_range.elapsed_us()
-    launches = sum(c for c, _ in by_name.values())
-    busy_us = sum(us for _, us in by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
-    wall_ms = 1e3 * wall_s / STEPS
-    busy_ms = 1e-3 * busy_us / STEPS
     print(json.dumps({
-        "card": card, "path": path, **shape,
-        "n_sub": N_SUB,
+        "card": card, "path": path, **shape, "n_sub": N_SUB,
         "untraced_steps": TIMED, "untraced_ms_per_step": untraced_ms,
         "env_steps_per_s": 1e3 * n_envs / untraced_ms,
-        "steps": STEPS, "wall_ms_per_step": wall_ms,
-        "device_busy_ms_per_step": busy_ms,
-        "device_idle_share": 1.0 - busy_ms / wall_ms,
-        "device_launches_per_step": launches / STEPS,
-        "top_kernels": [
-            {"name": name[:80], "per_step": c / STEPS,
-             "ms_per_step": 1e-3 * us / STEPS}
-            for name, (c, us) in top],
-    }))
+        "steps": STEPS, **traced_spans(roll, cfg, state, obs, policy, gen)}))
     return 0
 
 

@@ -15,7 +15,12 @@
   `diag.roofline.OpCounter` for flops and bytes, and the peak device
   memory. The counter sees torch operations only: the work inside a
   kernel's ctypes launch is not in its flops.
-- `Stopwatch`: chained-state throughput timing, synced by `force_sync`.
+- `span(name)`: a named region of the env step, recorded only while a
+  profiler records (`torch.profiler`, `trace`): a ``user_annotation`` in
+  the chrome trace, and a record of its host and device time that
+  `records()` returns. With no profiler recording it does nothing.
+- `Stopwatch`: chained-state throughput timing, synced by `force_sync` at
+  its start and by a device sync at its end.
 """
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ import time
 from collections import Counter
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 
@@ -109,6 +115,106 @@ def trace(logdir: str | None = None):
                 time.sleep(TRACE_GUARD_S)
 
 
+# The spans recorded while a profiler records, oldest first, each a list
+# [name, parent, host start ns, host end ns, start event, end event,
+# drained]; at most MAX_RECORDS, those beyond counted in `_dropped`.
+MAX_RECORDS = 131072
+_NULL_SPAN = contextlib.nullcontext()
+_records: list = []
+_open: list = []        # the index of each span entered and not yet left
+_last_exit: dict = {}   # name -> the end event of its latest span
+_dropped = 0
+
+
+class _Span:
+    """A span while a profiler records: `torch.profiler.record_function`,
+    and a record of the span's host clock and, where CUDA is initialized,
+    two timing events on the current stream."""
+
+    __slots__ = ("name", "rf", "rec")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        global _dropped
+        self.rf = torch.profiler.record_function(self.name)
+        self.rf.__enter__()
+        self.rec = None
+        if len(_records) >= MAX_RECORDS:
+            _dropped += 1
+            _open.append(None)
+            return self
+        start = drained = None
+        if torch.cuda.is_available() and torch.cuda.is_initialized():
+            prev = _last_exit.get(self.name)
+            drained = None if prev is None else prev.query()
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+        self.rec = [self.name, _open[-1] if _open else None,
+                    time.perf_counter_ns(), None, start, None, drained]
+        _open.append(len(_records))
+        _records.append(self.rec)
+        return self
+
+    def __exit__(self, *exc):
+        rec = self.rec
+        if rec is not None:
+            if rec[4] is not None:
+                end = torch.cuda.Event(enable_timing=True)
+                end.record()
+                rec[5] = _last_exit[self.name] = end
+            rec[3] = time.perf_counter_ns()
+        if _open:
+            _open.pop()
+        return self.rf.__exit__(*exc)
+
+
+def span(name: str):
+    """A context manager naming a region of the program. While a profiler
+    records, the region is a ``user_annotation`` of the chrome trace and a
+    record of `records()`; otherwise it is one shared null context that
+    records, launches and syncs nothing."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NULL_SPAN
+    return _Span(name)
+
+
+def records() -> list:
+    """The recorded spans, oldest first, as dicts: ``name``; ``parent``,
+    the index of the enclosing recorded span (None at the top);
+    ``host_ms``; ``device_ms``, the current CUDA stream's time from the
+    span's entry to its exit (the host time where CUDA was not
+    initialized); ``drained``, whether the device had finished the
+    previous span of the same name when this one was entered (None on the
+    host, or for a name's first span). One device sync resolves the
+    events; a span not yet left reads None times."""
+    if any(r[5] is not None for r in _records):
+        torch.cuda.synchronize()
+    out = []
+    for name, parent, h0, h1, e0, e1, drained in _records:
+        host_ms = None if h1 is None else (h1 - h0) / 1e6
+        device_ms = host_ms if e0 is None else (
+            None if e1 is None else e0.elapsed_time(e1))
+        out.append({"name": name, "parent": parent, "host_ms": host_ms,
+                    "device_ms": device_ms, "drained": drained})
+    return out
+
+
+def dropped() -> int:
+    """Spans not recorded since the last `clear`: those past MAX_RECORDS."""
+    return _dropped
+
+
+def clear():
+    """Forget every recorded span; call it between spans."""
+    global _dropped
+    _records.clear()
+    _open.clear()
+    _last_exit.clear()
+    _dropped = 0
+
+
 def trace_events(logdir: str) -> list:
     """The events of the newest trace `trace` wrote under ``logdir``."""
     paths = glob.glob(os.path.join(logdir, "*.pt.trace.json*"))
@@ -169,7 +275,9 @@ def compile_report(fn, *args, **kwargs) -> dict:
 class Stopwatch:
     """Throughput timer for step-like functions ``(state, ...) -> (state,
     ...)``: chains the state through the reps, so no call's work can be
-    skipped, and syncs by `force_sync` at both ends of the timed region.
+    skipped. The timed region starts after a `force_sync` and ends with a
+    device sync where the state is on a card (`force_sync` on the host),
+    so it reads no leaf of the state on the card.
 
     >>> sw = Stopwatch(step_fn, state0, n_warmup=2)
     >>> rate = sw.rate(reps=20, items_per_call=n_envs)
@@ -183,6 +291,7 @@ class Stopwatch:
             s = self._once(s)
         force_sync(s)
         self.state = s
+        self.cuda = any(leaf.is_cuda for leaf in _leaves(s))
 
     def _once(self, s):
         out = self.fn(s, *self.extra)
@@ -195,7 +304,10 @@ class Stopwatch:
         t0 = time.perf_counter()
         for _ in range(reps):
             s = self._once(s)
-        force_sync(s)
+        if self.cuda:
+            torch.cuda.synchronize()
+        else:
+            force_sync(s)
         el = time.perf_counter() - t0
         self.state = s
         return el / reps
@@ -204,5 +316,5 @@ class Stopwatch:
         return items_per_call / self.elapsed(reps)
 
 
-__all__ = ["force_sync", "trace", "trace_events", "device_op_summary",
-           "compile_report", "Stopwatch"]
+__all__ = ["force_sync", "trace", "span", "records", "dropped", "clear",
+           "trace_events", "device_op_summary", "compile_report", "Stopwatch"]

@@ -24,6 +24,7 @@ import torch
 
 from pvderx_torch._struct import replace, struct, tree_map
 from pvderx_torch.checks import check_parameters, check_scenario
+from pvderx_torch.diag.profiler import span
 from pvderx_torch.dist.mesh import draw_rows
 from pvderx_torch.ode import newton_solve
 from pvderx_torch.ode.implicit import WINDOWS as IMPLICIT_WINDOWS
@@ -423,42 +424,44 @@ def _pre_window(cfg: EnvConfig, st: EnvState, action):
 
     Returns (t, exog, mppt, flag) with exog zero-order-held over the window.
     """
-    dtype = st.y.dtype
-    t = st.t_step.to(dtype) * cfg.dt_ctrl
+    with span("env.pre_window"):
+        dtype = st.y.dtype
+        t = st.t_step.to(dtype) * cfg.dt_ctrl
 
-    # 1. agent action -> setpoint nudges (ignored for auto-controlled fields)
-    q_ref = st.q_ref
-    vdc_ref = st.vdc_ref
-    flag = torch.zeros_like(q_ref)
-    if cfg.continuous:
-        # continuous extension: action [N, 2] in [-1,1] scales the deltas
-        a = torch.clamp(action.to(dtype), -1.0, 1.0)
-        dq, dv = cfg.dq_action * a[:, 0], cfg.dv_action * a[:, 1]
-    else:
-        a = action
-        dq = cfg.dq_action * ((a == 1).to(dtype) - (a == 2).to(dtype))
-        dv = cfg.dv_action * ((a == 3).to(dtype) - (a == 4).to(dtype))
-        if cfg.anomaly_detect:
-            flag = (a == 5).to(dtype)   # "flag anomaly"
-    if not cfg.voltvar_enable:
-        q_ref = torch.clamp(q_ref + dq, cfg.q_lo, cfg.q_hi)
-    if not cfg.mppt_enable:
-        vdc_ref = torch.clamp(vdc_ref + dv, cfg.v_lo, cfg.v_hi)
+        # 1. agent action -> setpoint nudges (ignored for auto-controlled
+        # fields)
+        q_ref = st.q_ref
+        vdc_ref = st.vdc_ref
+        flag = torch.zeros_like(q_ref)
+        if cfg.continuous:
+            # continuous extension: action [N, 2] in [-1,1] scales the deltas
+            a = torch.clamp(action.to(dtype), -1.0, 1.0)
+            dq, dv = cfg.dq_action * a[:, 0], cfg.dv_action * a[:, 1]
+        else:
+            a = action
+            dq = cfg.dq_action * ((a == 1).to(dtype) - (a == 2).to(dtype))
+            dv = cfg.dv_action * ((a == 3).to(dtype) - (a == 4).to(dtype))
+            if cfg.anomaly_detect:
+                flag = (a == 5).to(dtype)   # "flag anomaly"
+        if not cfg.voltvar_enable:
+            q_ref = torch.clamp(q_ref + dq, cfg.q_lo, cfg.q_hi)
+        if not cfg.mppt_enable:
+            vdc_ref = torch.clamp(vdc_ref + dv, cfg.v_lo, cfg.v_hi)
 
-    # 2. supervisory layer at window start (SPEC §8; ZOH over the window)
-    conn = 1.0 - st.rt.tripped
-    exog = make_exog(st.sched, t, vdc_ref, q_ref, conn, st.rt.ces)
-    mppt = st.mppt
-    if cfg.voltvar_enable or cfg.mppt_enable:
-        g0 = _algebra(st.y, t, st.der, exog)
-        if cfg.voltvar_enable:
-            q_ref = voltvar_qref(torch.hypot(g0.v_pos.re, g0.v_pos.im),
-                                 cfg.q_vv)
-        if cfg.mppt_enable:
-            mppt, vdc_ref = mppt_update(mppt, vdc_ref, g0.p_pv, st.t_step,
-                                        cfg.n_mppt)
-        exog = replace(exog, vdc_ref=vdc_ref, q_ref=q_ref)
-    return t, exog, mppt, flag
+        # 2. supervisory layer at window start (SPEC §8; ZOH over the window)
+        conn = 1.0 - st.rt.tripped
+        exog = make_exog(st.sched, t, vdc_ref, q_ref, conn, st.rt.ces)
+        mppt = st.mppt
+        if cfg.voltvar_enable or cfg.mppt_enable:
+            g0 = _algebra(st.y, t, st.der, exog)
+            if cfg.voltvar_enable:
+                q_ref = voltvar_qref(torch.hypot(g0.v_pos.re, g0.v_pos.im),
+                                     cfg.q_vv)
+            if cfg.mppt_enable:
+                mppt, vdc_ref = mppt_update(mppt, vdc_ref, g0.p_pv, st.t_step,
+                                            cfg.n_mppt)
+            exog = replace(exog, vdc_ref=vdc_ref, q_ref=q_ref)
+        return t, exog, mppt, flag
 
 
 def _anomaly_active(st: EnvState, exog):
@@ -476,41 +479,43 @@ def _anomaly_active(st: EnvState, exog):
 
 def _post_window(cfg: EnvConfig, st: EnvState, exog, mppt, t, y1, flag):
     """Steps 4-5: post-window measurements, ride-through, obs/reward/done."""
-    dtype = st.y.dtype
-    dt = cfg.dt_ctrl
-    vdc_ref = exog.vdc_ref
-    q_ref = exog.q_ref
-    # 4. post-window measurements + ride-through update
-    g1 = _algebra(y1, t + dt, st.der, exog)
-    v_mag1 = torch.hypot(g1.v_pos.re, g1.v_pos.im)
-    rt1 = rt_update(st.rt, cfg.rt, v_mag1, g1.f_meas, dt)
-    trip_now = rt1.tripped * (1.0 - st.rt.tripped)
+    with span("env.post_window"):
+        dtype = st.y.dtype
+        dt = cfg.dt_ctrl
+        vdc_ref = exog.vdc_ref
+        q_ref = exog.q_ref
+        # 4. post-window measurements + ride-through update
+        g1 = _algebra(y1, t + dt, st.der, exog)
+        v_mag1 = torch.hypot(g1.v_pos.re, g1.v_pos.im)
+        rt1 = rt_update(st.rt, cfg.rt, v_mag1, g1.f_meas, dt)
+        trip_now = rt1.tripped * (1.0 - st.rt.tripped)
 
-    # 5. outputs
-    t_next = (st.t_step + 1).to(dtype)
-    st1 = replace(st, y=y1, t_step=st.t_step + 1, vdc_ref=vdc_ref,
-                  q_ref=q_ref, rt=rt1, mppt=mppt)
-    # obs reflects post-step connection status (a trip this step shows up)
-    obs = _obs(cfg, st1, g1, replace(exog, conn=1.0 - rt1.tripped), t_next)
-    vdc = y1[:, 6 * cfg.der.n_ph]
-    reward = _reward(cfg, vdc, vdc_ref, g1.q_pcc, q_ref, v_mag1, trip_now)
-    if cfg.anomaly_detect:
-        anom = _anomaly_active(st, exog)
-        reward = reward + (flag * (anom * cfg.r_anom_tp
-                                   - (1.0 - anom) * cfg.r_anom_fp)
-                           - (1.0 - flag) * anom * cfg.r_anom_fn)
-    terminated = rt1.tripped > 0.5
-    truncated = st1.t_step >= cfg.horizon
-    done = terminated | truncated
-    v2 = rhs_core.neg_seq(g1.v, cfg.der.n_ph, like(y1))
-    info = {
-        "vdc": vdc, "v_mag": v_mag1, "f_meas": g1.f_meas,
-        "v_unb": torch.hypot(v2.re, v2.im),   # PCC neg-seq voltage magnitude
-        "p_pcc": g1.p_pcc, "q_pcc": g1.q_pcc, "p_pv": g1.p_pv,
-        "tripped": rt1.tripped, "trip_now": trip_now,
-        "terminated": terminated, "truncated": truncated,
-    }
-    return st1, obs, reward, done, info
+        # 5. outputs
+        t_next = (st.t_step + 1).to(dtype)
+        st1 = replace(st, y=y1, t_step=st.t_step + 1, vdc_ref=vdc_ref,
+                      q_ref=q_ref, rt=rt1, mppt=mppt)
+        # obs reflects post-step connection status (a trip this step shows up)
+        obs = _obs(cfg, st1, g1, replace(exog, conn=1.0 - rt1.tripped), t_next)
+        vdc = y1[:, 6 * cfg.der.n_ph]
+        reward = _reward(cfg, vdc, vdc_ref, g1.q_pcc, q_ref, v_mag1, trip_now)
+        if cfg.anomaly_detect:
+            anom = _anomaly_active(st, exog)
+            reward = reward + (flag * (anom * cfg.r_anom_tp
+                                       - (1.0 - anom) * cfg.r_anom_fp)
+                               - (1.0 - flag) * anom * cfg.r_anom_fn)
+        terminated = rt1.tripped > 0.5
+        truncated = st1.t_step >= cfg.horizon
+        done = terminated | truncated
+        v2 = rhs_core.neg_seq(g1.v, cfg.der.n_ph, like(y1))
+        info = {
+            "vdc": vdc, "v_mag": v_mag1, "f_meas": g1.f_meas,
+            # PCC neg-seq voltage magnitude
+            "v_unb": torch.hypot(v2.re, v2.im),
+            "p_pcc": g1.p_pcc, "q_pcc": g1.q_pcc, "p_pv": g1.p_pv,
+            "tripped": rt1.tripped, "trip_now": trip_now,
+            "terminated": terminated, "truncated": truncated,
+        }
+        return st1, obs, reward, done, info
 
 
 def step(cfg: EnvConfig, st: EnvState, action, p_pack=None):
@@ -526,17 +531,21 @@ def step(cfg: EnvConfig, st: EnvState, action, p_pack=None):
     (`ops.window.pad_envs`), so that an env's step does not depend on the
     batch size."""
     t, exog, mppt, flag = _pre_window(cfg, st, action)
-    if cfg.integrator != "rk4":
-        n = st.y.shape[0]
-        y, tp = pad_envs(n, (st.y, 0), (t, 0))
-        y1 = IMPLICIT_WINDOWS[cfg.integrator](
-            partial(_rhs, der=pad_tree(n, st.der), exog=pad_tree(n, exog)),
-            y, tp, cfg.dt_ctrl, cfg.n_sub)[:n]
-        return _post_window(cfg, st, exog, mppt, t, y1, flag)
-    if p_pack is None:
-        p_pack = pack_struct(st.der, P_FIELDS)
-    y1 = rk4_window_batch(st.y, t, p_pack, pack_struct(exog, U_FIELDS),
-                          n_ph=cfg.der.n_ph, n_sub=cfg.n_sub, dt=cfg.dt_ctrl)
+    with span("env.window"):
+        if cfg.integrator != "rk4":
+            n = st.y.shape[0]
+            y, tp = pad_envs(n, (st.y, 0), (t, 0))
+            y1 = IMPLICIT_WINDOWS[cfg.integrator](
+                partial(_rhs, der=pad_tree(n, st.der),
+                        exog=pad_tree(n, exog)),
+                y, tp, cfg.dt_ctrl, cfg.n_sub)[:n]
+        else:
+            if p_pack is None:
+                p_pack = pack_struct(st.der, P_FIELDS)
+            y1 = rk4_window_batch(st.y, t, p_pack,
+                                  pack_struct(exog, U_FIELDS),
+                                  n_ph=cfg.der.n_ph, n_sub=cfg.n_sub,
+                                  dt=cfg.dt_ctrl)
     return _post_window(cfg, st, exog, mppt, t, y1, flag)
 
 
@@ -563,9 +572,12 @@ def step_autoreset(cfg: EnvConfig, st: EnvState, action,
     ``generator`` (under a ``mesh``, this rank's rows of the global draw).
     The batched counterpart of the reference's per-env `step_autoreset`,
     which draws from the state's own key."""
-    st1, obs, reward, done, info = step(cfg, st, action, p_pack)
-    uv = event_draws(cfg, st.y.shape[0], generator, mesh)
-    st2, obs2 = autoreset(done, _soft_reset(cfg, st1, uv), (st1, obs))
+    with span("env.step"):
+        st1, obs, reward, done, info = step(cfg, st, action, p_pack)
+        with span("env.autoreset"):
+            uv = event_draws(cfg, st.y.shape[0], generator, mesh)
+            st2, obs2 = autoreset(done, _soft_reset(cfg, st1, uv),
+                                  (st1, obs))
     return st2, obs2, reward, done, info
 
 

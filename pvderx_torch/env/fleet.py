@@ -34,6 +34,7 @@ from functools import partial
 import torch
 
 from pvderx_torch._struct import replace, struct, tree_map
+from pvderx_torch.diag.profiler import span
 from pvderx_torch.dist.mesh import local_count
 from pvderx_torch.env import core
 from pvderx_torch.env.core import N_ACTIONS, OBS_DIM, EnvConfig, autoreset
@@ -230,66 +231,69 @@ def _pre_window(fc: FleetConfig, st: FleetState, action):
 
     ``action`` is [N] (aggregate: broadcast to the units) or [N, M]
     (per-unit). Volt-VAR takes the shared PCC voltage; MPPT runs per unit."""
-    cfg, m = fc.base, fc.m
-    dtype = st.y.dtype
-    t = st.t_step.to(dtype) * cfg.dt_ctrl
-    a = action if action.dim() == 2 else action[:, None]
+    with span("env.pre_window"):
+        cfg, m = fc.base, fc.m
+        dtype = st.y.dtype
+        t = st.t_step.to(dtype) * cfg.dt_ctrl
+        a = action if action.dim() == 2 else action[:, None]
 
-    q_ref, vdc_ref = st.q_ref, st.vdc_ref
-    if not cfg.voltvar_enable:
-        dq = cfg.dq_action * ((a == 1).to(dtype) - (a == 2).to(dtype))
-        q_ref = torch.clamp(q_ref + dq, cfg.q_lo, cfg.q_hi)
-    if not cfg.mppt_enable:
-        dv = cfg.dv_action * ((a == 3).to(dtype) - (a == 4).to(dtype))
-        vdc_ref = torch.clamp(vdc_ref + dv, cfg.v_lo, cfg.v_hi)
+        q_ref, vdc_ref = st.q_ref, st.vdc_ref
+        if not cfg.voltvar_enable:
+            dq = cfg.dq_action * ((a == 1).to(dtype) - (a == 2).to(dtype))
+            q_ref = torch.clamp(q_ref + dq, cfg.q_lo, cfg.q_hi)
+        if not cfg.mppt_enable:
+            dv = cfg.dv_action * ((a == 3).to(dtype) - (a == 4).to(dtype))
+            vdc_ref = torch.clamp(vdc_ref + dv, cfg.v_lo, cfg.v_hi)
 
-    conn = 1.0 - st.rt.tripped
-    fu = _fleet_exog(st.sched, t, m, vdc_ref, q_ref, conn, st.rt.ces,
-                     st.s_scale)
-    mppt = st.mppt
-    if cfg.voltvar_enable or cfg.mppt_enable:
-        g0 = _algebra(st.y, t, st.der, fu)
-        if cfg.voltvar_enable:
-            v_mag0 = torch.hypot(g0.v_pos.re[:, 0], g0.v_pos.im[:, 0])
-            q_ref = voltvar_qref(v_mag0, cfg.q_vv)[:, None].expand(-1, m)
-        if cfg.mppt_enable:
-            mppt, vdc_ref = mppt_update(mppt, vdc_ref, g0.p_pv,
-                                        st.t_step[:, None], cfg.n_mppt)
-        fu = replace(fu, vdc_ref=vdc_ref, q_ref=q_ref)
-    return t, fu, mppt
+        conn = 1.0 - st.rt.tripped
+        fu = _fleet_exog(st.sched, t, m, vdc_ref, q_ref, conn, st.rt.ces,
+                         st.s_scale)
+        mppt = st.mppt
+        if cfg.voltvar_enable or cfg.mppt_enable:
+            g0 = _algebra(st.y, t, st.der, fu)
+            if cfg.voltvar_enable:
+                v_mag0 = torch.hypot(g0.v_pos.re[:, 0], g0.v_pos.im[:, 0])
+                q_ref = voltvar_qref(v_mag0, cfg.q_vv)[:, None].expand(-1, m)
+            if cfg.mppt_enable:
+                mppt, vdc_ref = mppt_update(mppt, vdc_ref, g0.p_pv,
+                                            st.t_step[:, None], cfg.n_mppt)
+            fu = replace(fu, vdc_ref=vdc_ref, q_ref=q_ref)
+        return t, fu, mppt
 
 
 def _post_window(fc: FleetConfig, st: FleetState, fu, mppt, t, y1):
     """Post-window measurements, ride-through, obs/reward/done (steps 4-5)."""
-    cfg = fc.base
-    dtype = st.y.dtype
-    dt = cfg.dt_ctrl
-    vdc_ref, q_ref = fu.vdc_ref, fu.q_ref
-    g1 = _algebra(y1, t + dt, st.der, fu)
-    v_mag1 = torch.hypot(g1.v_pos.re[:, 0], g1.v_pos.im[:, 0])
-    # every unit sees the shared PCC voltage, and its own frequency estimate
-    rt1 = rt_update(st.rt, cfg.rt, v_mag1[:, None].expand_as(g1.f_meas),
-                    g1.f_meas, dt)
-    trip_now = (rt1.tripped * (1.0 - st.rt.tripped)).mean(-1)
+    with span("env.post_window"):
+        cfg = fc.base
+        dtype = st.y.dtype
+        dt = cfg.dt_ctrl
+        vdc_ref, q_ref = fu.vdc_ref, fu.q_ref
+        g1 = _algebra(y1, t + dt, st.der, fu)
+        v_mag1 = torch.hypot(g1.v_pos.re[:, 0], g1.v_pos.im[:, 0])
+        # every unit sees the shared PCC voltage, and its own frequency
+        # estimate
+        rt1 = rt_update(st.rt, cfg.rt, v_mag1[:, None].expand_as(g1.f_meas),
+                        g1.f_meas, dt)
+        trip_now = (rt1.tripped * (1.0 - st.rt.tripped)).mean(-1)
 
-    t_next = (st.t_step + 1).to(dtype)
-    st1 = replace(st, y=y1, t_step=st.t_step + 1, vdc_ref=vdc_ref,
-                  q_ref=q_ref, rt=rt1, mppt=mppt)
-    obs = _obs(fc, st1, g1, replace(fu, conn=1.0 - rt1.tripped), t_next)
-    vdc_m = y1[:, :, 6 * cfg.der.n_ph].mean(-1)
-    reward = core._reward(cfg, vdc_m, vdc_ref.mean(-1), g1.q_pcc.mean(-1),
-                          q_ref.mean(-1), v_mag1, trip_now)
-    terminated = rt1.tripped.amin(-1) > 0.5      # the whole fleet offline
-    truncated = st1.t_step >= cfg.horizon
-    done = terminated | truncated
-    info = {
-        "vdc": vdc_m, "v_mag": v_mag1, "f_meas": g1.f_meas.mean(-1),
-        "p_pcc": g1.p_pcc.mean(-1), "q_pcc": g1.q_pcc.mean(-1),
-        "p_pv": g1.p_pv.mean(-1),
-        "tripped_frac": rt1.tripped.mean(-1), "trip_now_frac": trip_now,
-        "terminated": terminated, "truncated": truncated,
-    }
-    return st1, obs, reward, done, info
+        t_next = (st.t_step + 1).to(dtype)
+        st1 = replace(st, y=y1, t_step=st.t_step + 1, vdc_ref=vdc_ref,
+                      q_ref=q_ref, rt=rt1, mppt=mppt)
+        obs = _obs(fc, st1, g1, replace(fu, conn=1.0 - rt1.tripped), t_next)
+        vdc_m = y1[:, :, 6 * cfg.der.n_ph].mean(-1)
+        reward = core._reward(cfg, vdc_m, vdc_ref.mean(-1), g1.q_pcc.mean(-1),
+                              q_ref.mean(-1), v_mag1, trip_now)
+        terminated = rt1.tripped.amin(-1) > 0.5      # the whole fleet offline
+        truncated = st1.t_step >= cfg.horizon
+        done = terminated | truncated
+        info = {
+            "vdc": vdc_m, "v_mag": v_mag1, "f_meas": g1.f_meas.mean(-1),
+            "p_pcc": g1.p_pcc.mean(-1), "q_pcc": g1.q_pcc.mean(-1),
+            "p_pv": g1.p_pv.mean(-1),
+            "tripped_frac": rt1.tripped.mean(-1), "trip_now_frac": trip_now,
+            "terminated": terminated, "truncated": truncated,
+        }
+        return st1, obs, reward, done, info
 
 
 def step(fc: FleetConfig, st: FleetState, action, p_pack=None):
@@ -302,18 +306,19 @@ def step(fc: FleetConfig, st: FleetState, action, p_pack=None):
     batch padded as in `env.core.step`)."""
     cfg = fc.base
     t, fu, mppt = _pre_window(fc, st, action)
-    if cfg.integrator != "rk4":
-        n = st.y.shape[0]
-        y, tp = pad_envs(n, (st.y, 0), (t, 0))
-        y1 = IMPLICIT_WINDOWS[cfg.integrator](
-            partial(_rhs, der=pad_tree(n, st.der), fu=pad_tree(n, fu)), y,
-            tp, cfg.dt_ctrl, cfg.n_sub)[:n]
-        return _post_window(fc, st, fu, mppt, t, y1)
-    if p_pack is None:
-        p_pack = pack_struct(st.der, P_FIELDS)
-    y1 = rk4_fleet_window_batch(st.y, t, p_pack, pack_struct(fu, U_FIELDS),
-                                n_ph=cfg.der.n_ph, m=fc.m, n_sub=cfg.n_sub,
-                                dt=cfg.dt_ctrl)
+    with span("env.window"):
+        if cfg.integrator != "rk4":
+            n = st.y.shape[0]
+            y, tp = pad_envs(n, (st.y, 0), (t, 0))
+            y1 = IMPLICIT_WINDOWS[cfg.integrator](
+                partial(_rhs, der=pad_tree(n, st.der), fu=pad_tree(n, fu)),
+                y, tp, cfg.dt_ctrl, cfg.n_sub)[:n]
+        else:
+            if p_pack is None:
+                p_pack = pack_struct(st.der, P_FIELDS)
+            y1 = rk4_fleet_window_batch(
+                st.y, t, p_pack, pack_struct(fu, U_FIELDS),
+                n_ph=cfg.der.n_ph, m=fc.m, n_sub=cfg.n_sub, dt=cfg.dt_ctrl)
     return _post_window(fc, st, fu, mppt, t, y1)
 
 
@@ -322,9 +327,13 @@ def step_autoreset(fc: FleetConfig, state, actions, generator,
     """`step` of every env, then a branchless restart of the done ones, their
     new events drawn from ``generator`` (`env.core.step_autoreset` for the
     fleet)."""
-    st1, obs, reward, done, info = step(fc, state, actions, p_pack)
-    uv = core.event_draws(fc.base, state.y.shape[0], generator, mesh)
-    st2, obs2 = autoreset(done, _soft_reset(fc, st1, uv), (st1, obs))
+    with span("env.step"):
+        st1, obs, reward, done, info = step(fc, state, actions, p_pack)
+        with span("env.autoreset"):
+            uv = core.event_draws(fc.base, state.y.shape[0], generator,
+                                  mesh)
+            st2, obs2 = autoreset(done, _soft_reset(fc, st1, uv),
+                                  (st1, obs))
     return st2, obs2, reward, done, info
 
 

@@ -22,6 +22,7 @@ import torch
 
 from functools import partial
 
+from pvderx_torch.diag.profiler import span
 from pvderx_torch.dist.mesh import local_count
 from pvderx_torch.env import core
 from pvderx_torch.ops.dualfloat import rk4_window_batch_df
@@ -58,18 +59,21 @@ def _step_df_impl(cfg: core.EnvConfig, carry, actions, generator,
     window, `core._post_window` on hi, then the autoreset select, which
     zeroes y_lo where done (the cached y0 is an exact-f32 episode anchor)."""
     state, y_lo = carry
-    t, exog, mppt, flag = core._pre_window(cfg, state, actions)
-    if p_pack is None:
-        p_pack = pack_struct(state.der, P_FIELDS)
-    y1, y1_lo = rk4_window_batch_df(
-        state.y, y_lo, t, p_pack, pack_struct(exog, U_FIELDS),
-        n_ph=cfg.der.n_ph, n_sub=cfg.n_sub, dt=cfg.dt_ctrl)
-    st1, obs, reward, done, info = core._post_window(cfg, state, exog, mppt,
-                                                     t, y1, flag)
-    uv = core.event_draws(cfg, state.y.shape[0], generator, mesh)
-    st2, obs2 = core.autoreset(done, core._soft_reset(cfg, st1, uv),
-                               (st1, obs))
-    y_lo2 = core._where_done(done, torch.zeros_like(y1_lo), y1_lo)
+    with span("env.step"):
+        t, exog, mppt, flag = core._pre_window(cfg, state, actions)
+        with span("env.window"):
+            if p_pack is None:
+                p_pack = pack_struct(state.der, P_FIELDS)
+            y1, y1_lo = rk4_window_batch_df(
+                state.y, y_lo, t, p_pack, pack_struct(exog, U_FIELDS),
+                n_ph=cfg.der.n_ph, n_sub=cfg.n_sub, dt=cfg.dt_ctrl)
+        st1, obs, reward, done, info = core._post_window(
+            cfg, state, exog, mppt, t, y1, flag)
+        with span("env.autoreset"):
+            uv = core.event_draws(cfg, state.y.shape[0], generator, mesh)
+            st2, obs2 = core.autoreset(done, core._soft_reset(cfg, st1, uv),
+                                       (st1, obs))
+            y_lo2 = core._where_done(done, torch.zeros_like(y1_lo), y1_lo)
     return (st2, y_lo2), obs2, reward, done, info
 
 
@@ -131,11 +135,15 @@ def rollout_with(step_impl, cfg, state, obs, policy_fn, n_steps: int,
     """The rollout loop over ``step_impl(cfg, state, actions, generator,
     p_pack)``, a batched step with autoreset. Per-env params never change
     across steps (soft reset keeps der), so the caller packs them once."""
-    rews, dones = [], []
-    for _ in range(n_steps):
-        acts = policy_fn(obs, generator)
-        state, obs, rew, done, _ = step_impl(cfg, state, acts, generator,
-                                             p_pack)
-        rews.append(rew)
-        dones.append(done)
-    return state, obs, torch.stack(rews), torch.stack(dones)
+    with span("rollout"):
+        rews, dones = [], []
+        for _ in range(n_steps):
+            with span("rollout.policy"):
+                acts = policy_fn(obs, generator)
+            state, obs, rew, done, _ = step_impl(cfg, state, acts, generator,
+                                                 p_pack)
+            rews.append(rew)
+            dones.append(done)
+        with span("rollout.stack"):
+            rews, dones = torch.stack(rews), torch.stack(dones)
+    return state, obs, rews, dones

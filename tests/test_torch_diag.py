@@ -118,6 +118,31 @@ def test_torch_profiler_compile_report_and_stopwatch():
     assert float(sw.state[0]) >= 2.0       # the state advanced (chained)
 
 
+@pytest.mark.parametrize("cuda", [False, True])
+def test_torch_stopwatch_reads_no_leaf_inside_its_timed_region(
+        monkeypatch, cuda):
+    """The timed region ends with a device sync where the state is on a
+    card (the state's reduction there would read all of it); on the host
+    with `force_sync`. Either way it starts after a `force_sync`."""
+    from pvderx_torch.diag import profiler
+
+    sw = Stopwatch(lambda s: (s + 1.0,), torch.zeros(8))
+    sw.cuda = cuda
+    log = []
+    clock = profiler.time.perf_counter
+    monkeypatch.setattr(profiler, "force_sync",
+                        lambda tree: log.append("force_sync") or 0.0)
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda *a: log.append("device_sync"))
+    monkeypatch.setattr(profiler.time, "perf_counter",
+                        lambda: log.append("clock") or clock())
+    monkeypatch.setattr(sw, "fn", lambda s: log.append("step") or (s + 1.0,))
+    sw.elapsed(reps=2)
+    end = "device_sync" if cuda else "force_sync"
+    assert log == ["force_sync", "clock", "step", "step", end, "clock"]
+    assert float(sw.state[0]) == 4.0
+
+
 def test_torch_force_sync_sums_every_leaf():
     x = torch.arange(4, dtype=torch.float32) * 2.0
     assert force_sync(x) == pytest.approx(12.0)
