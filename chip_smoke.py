@@ -6,7 +6,7 @@
 Phases, one line each (a failing phase raises, so the script exits non-zero):
 
 1. device   — the card's name and power limit (nvidia-smi).
-2. build    — nvcc builds the kernels (K1-K3, N1-N4) from
+2. build    — nvcc builds the kernels (K1-K3, N1-N4, the autoreset) from
               pvderx_torch/ops/csrc/ (one nvcc per source, in parallel) and
               reports each kernel's registers and spills.
 3. kernel   — the CUDA window kernel (K1) against its plain torch version on the
@@ -212,6 +212,20 @@ Phases, one line each (a failing phase raises, so the script exits non-zero):
               `rk4_window_batch` at 32768 envs, `run_trajectory` over
               tests/test_native.py's 30 windows, < 5e-8 of LSODA): each
               kernel once per call.
+
+37. autoreset — the env step's autoreset kernel (`ops.autoreset`,
+              csrc/autoreset.cu, through `env.core.restart_done`) against
+              the plain version (`_soft_reset`, then `autoreset`'s select)
+              on a stepped batch: presets 10 and 50 (50 with unbalanced
+              sags drawn), float32 (K1's step) and float64 (a trapezoid
+              step), a ragged N = 37 and 32768 envs, no env done, one, a
+              random 1% and all; every leaf of the state and the obs, and
+              in float32 the df32 tier's y_lo, bit for bit equal, one
+              launch each; no leaf of the input state and nothing the step
+              returned (reward, done, info) changed. Then ms per launch at
+              2097152 envs (one env in 600 done) beside its bytes bound and
+              the plain version's ms. Phases 5, 13 and 21 require one
+              autoreset launch per env step.
 
 Every line carries `at_s`, the seconds since the script started. The
 float64 LSODA truths of phases 4, 8, 12, 19, 22 and 36 run in worker
@@ -505,9 +519,12 @@ def _zero_counts():
     from pvderx_torch.ops.dualfloat import rk4_window_batch_df
     from pvderx_torch.ops.window import rk4_fleet_window_batch, rk4_window_batch
 
+    from pvderx_torch.ops.autoreset import autoreset_batch
+
     rk4_window_batch.launches = 0
     rk4_fleet_window_batch.launches = 0
     rk4_window_batch_df.launches = 0
+    autoreset_batch.launches = 0
 
 
 def _drive(roll, state, obs, warm, chunk):
@@ -538,10 +555,15 @@ def _drive(roll, state, obs, warm, chunk):
     return state, obs, out
 
 
-def _check_drive(name, out, launches, cuda):
+def _check_drive(name, out, launches, cuda, autoreset=None):
+    """A drive's checks; ``autoreset``: the autoreset kernel's launches,
+    which must equal the steps as the window kernel's do."""
     if launches != out["steps"] and cuda:
         raise AssertionError(
             f"{name}: kernel launches {launches} != steps {out['steps']}")
+    if autoreset is not None and autoreset != out["steps"] and cuda:
+        raise AssertionError(f"{name}: autoreset launches {autoreset} != "
+                             f"steps {out['steps']}")
     if not out["finite"]:
         raise AssertionError(f"{name}: non-finite obs or reward")
     if out["dones"] == 0:
@@ -565,6 +587,7 @@ def run_main(device, card, n_envs=N_ENVS, n_sub=N_SUB, warm=WARM_STEPS,
              chunk=CHUNK_STEPS):
     """Phases 5 and 6: the batched env at full width through the kernel."""
     from pvderx_torch.env import make_batch_fns, make_env_config, rollout
+    from pvderx_torch.ops.autoreset import autoreset_batch
     from pvderx_torch.ops.window import (
         P_FIELDS, U_FIELDS, pack_struct, rk4_window_batch,
         rk4_window_batch_ref)
@@ -586,6 +609,7 @@ def run_main(device, card, n_envs=N_ENVS, n_sub=N_SUB, warm=WARM_STEPS,
         lambda s, o, k: rollout(cfg, s, o, policy, k, gen), state, obs, warm,
         chunk)
     launches = rk4_window_batch.launches
+    ar_launches = autoreset_batch.launches
     peak_mib = (torch.cuda.max_memory_allocated(device) / 2 ** 20
                 if cuda else None)
 
@@ -611,13 +635,14 @@ def run_main(device, card, n_envs=N_ENVS, n_sub=N_SUB, warm=WARM_STEPS,
           kernel_share_of_step=(kernel_ms / step_ms if kernel_ms else None),
           plain_window_ms=plain_ms, preset50_ms_per_launch=k1_50_ms,
           peak_mem_mib=peak_mib,
-          launches=launches, steps=out["steps"], dones=out["dones"],
+          launches=launches, autoreset_launches=ar_launches,
+          steps=out["steps"], dones=out["dones"],
           rew_sum=out["rew_sum"], finite=out["finite"])
     phase("linear", card=card, two_chunks_over_one=out["ratio"],
           band=[1.5, 2.7])
-    _check_drive("main", out, launches, cuda)
-    return dict(launches=launches, kernel_ms=kernel_ms, plain_ms=plain_ms,
-                preset50_ms=k1_50_ms,
+    _check_drive("main", out, launches, cuda, autoreset=ar_launches)
+    return dict(launches=launches, autoreset_launches=ar_launches,
+                kernel_ms=kernel_ms, plain_ms=plain_ms, preset50_ms=k1_50_ms,
                 env_steps_per_s=n_envs * chunk / out["chunk_s"])
 
 
@@ -975,6 +1000,7 @@ def run_df_main(device, card, n_envs=N_ENVS, n_sub=N_SUB, warm=WARM_STEPS,
     from pvderx_torch.env import core, make_batch_fns_df, make_env_config
     from pvderx_torch.env import rollout_df
     from pvderx_torch.diag.roofline import window_bound_ms
+    from pvderx_torch.ops.autoreset import autoreset_batch
     from pvderx_torch.ops.dualfloat import rk4_window_batch_df
     from pvderx_torch.ops.window import (
         P_FIELDS, U_FIELDS, pack_struct, rk4_window_batch)
@@ -998,6 +1024,7 @@ def run_df_main(device, card, n_envs=N_ENVS, n_sub=N_SUB, warm=WARM_STEPS,
         lambda c, o, k: rollout_df(cfg, c, o, policy, k, gen), carry, obs,
         warm, chunk)
     launches = rk4_window_batch_df.launches
+    ar_launches = autoreset_batch.launches
     peak_mib = (torch.cuda.max_memory_allocated(device) / 2 ** 20
                 if cuda else None)
     state, y_lo = carry
@@ -1034,12 +1061,12 @@ def run_df_main(device, card, n_envs=N_ENVS, n_sub=N_SUB, warm=WARM_STEPS,
           plain_n_sub=n_sub, k3_preset50_ms_per_launch=k3_50_ms,
           k3_preset50_bound_ms=bound50["bound_ms"],
           peak_mem_mib=peak_mib,
-          launches=launches,
+          launches=launches, autoreset_launches=ar_launches,
           steps=out["steps"], dones=out["dones"], rew_sum=out["rew_sum"],
           finite=out["finite"], max_abs_y_lo=lo_max)
     phase("df_linear", card=card, two_chunks_over_one=out["ratio"],
           band=[1.5, 2.7])
-    _check_drive("df_main", out, launches, cuda)
+    _check_drive("df_main", out, launches, cuda, autoreset=ar_launches)
     if not lo_max > 0.0:
         raise AssertionError("df_main: y_lo is zero everywhere")
     return dict(launches=launches, kernel_ms=kernel_ms, plain_ms=plain_ms,
@@ -1484,6 +1511,7 @@ def run_gym(device, card, main_rate=None, n_envs=N_ENVS, n_sub=N_SUB,
     `PVDERFleetEnv` (aggregate, then per-unit) for ``steps`` steps, K1 / K2
     once per step."""
     from pvderx_torch.env import gym_adapter as ga
+    from pvderx_torch.ops.autoreset import autoreset_batch
     from pvderx_torch.ops.window import rk4_fleet_window_batch, rk4_window_batch
 
     cuda = torch.device(device).type == "cuda"
@@ -1505,11 +1533,13 @@ def run_gym(device, card, main_rate=None, n_envs=N_ENVS, n_sub=N_SUB,
         finite &= bool(np.isfinite(obs).all() and np.isfinite(rew).all())
     secs = time.perf_counter() - t
     launches = rk4_window_batch.launches
+    ar_launches = autoreset_batch.launches
     rate = n_envs * vec_steps / secs
     out = dict(gymnasium=ga._HAS_GYM, vector=dict(
         n_envs=n_envs, n_sub=n_sub, steps=vec_steps, reset_s=reset_s,
         step_ms=1e3 * secs / vec_steps, env_steps_per_s=rate,
-        main_env_steps_per_s=main_rate, launches=launches, dones=dones))
+        main_env_steps_per_s=main_rate, launches=launches,
+        autoreset_launches=ar_launches, dones=dones))
     phase("gym", card=card, adapter="PVDERVectorEnv", gymnasium=ga._HAS_GYM,
           **out["vector"])
     if not finite:
@@ -1519,6 +1549,9 @@ def run_gym(device, card, main_rate=None, n_envs=N_ENVS, n_sub=N_SUB,
     if cuda and launches != vec_steps:
         raise AssertionError(f"gym vector: K1 launches {launches} != steps "
                              f"{vec_steps}")
+    if cuda and ar_launches != vec_steps:
+        raise AssertionError(f"gym vector: autoreset launches {ar_launches} "
+                             f"!= steps {vec_steps}")
 
     single_acts = [k % 5 for k in range(steps)]
     ms, n = _drive_adapter(ga.PVDEREnv("10", n_sub=n_sub, device=device),
@@ -1851,13 +1884,19 @@ def run_diag_debug(device, card, n_envs=N_ENVS, n_sub=N_SUB, guard_n=64):
 
 
 def bitwise_differences(a, b, path="") -> list:
-    """Paths where two `diag.checkpoint.plain` trees differ; tensors are
+    """Paths where two trees differ (`diag.checkpoint.plain` trees, or
+    dataclasses, dicts and tuples of tensors on any device); tensors are
     compared bit for bit."""
+    import dataclasses
+
     if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
         same = (isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor)
                 and a.dtype == b.dtype and a.shape == b.shape
-                and a.numpy().tobytes() == b.numpy().tobytes())
+                and a.cpu().numpy().tobytes() == b.cpu().numpy().tobytes())
         return [] if same else [path]
+    if dataclasses.is_dataclass(a) and type(a) is type(b):
+        a, b = ({f.name: getattr(x, f.name) for f in dataclasses.fields(x)}
+                for x in (a, b))
     if isinstance(a, dict) and isinstance(b, dict):
         if set(a) != set(b):
             return [path]
@@ -3347,6 +3386,137 @@ def run_native(device, card, sizes=None):
         newton=dict(err=ss_err, launches=launches["newton_batch"], **ss_t))
 
 
+# Phase 37: the autoreset kernel's cases, (preset, dtype, N) x the done
+# patterns, and the batch at which it is timed (the benchmark cell's)
+AUTORESET_PRESETS = ("10", "50")
+AUTORESET_DTYPES = (torch.float32, torch.float64)
+AUTORESET_SIZES = (37, N_ENVS)
+AUTORESET_DONE = ("none", "one", "1pct", "all")
+AUTORESET_TIMED_ENVS = 2097152
+
+
+def _stepped_batch(preset, dtype, n, device, seed):
+    """(cfg, input state, step outputs (state, obs, reward, done, info),
+    generator): a reset of ``n`` envs and one step, K1's in float32, a
+    trapezoid one in float64; at preset 50 a scenario that draws unbalanced
+    sags. The stepped leaves that a step from a reset leaves uniform (step
+    count, setpoints, timers, trip latch, cessation, obs, y) are then
+    overwritten in place with seeded noise, so that a leaf copied from the
+    wrong place shows, and their aliases (``info["vdc"]`` a view of y,
+    ``info["tripped"]`` the trip latch) stay; the MPPT state (the input
+    state's, with MPPT off, whose p_prev is its ppv0) is replaced by
+    noise."""
+    from pvderx_torch._struct import replace
+    from pvderx_torch.env import core, make_env_config
+    from pvderx_torch.scenario.mppt_voltvar import MPPTState
+
+    scen = core.ScenarioConfig(p_unb=0.5) if preset == "50" else None
+    kw = (dict(n_sub=N_SUB) if dtype == torch.float32 else
+          dict(integrator="trapezoid", n_sub=4))
+    cfg = make_env_config(preset, dtype=dtype, scen=scen, device=device, **kw)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    st, _ = core.reset(cfg, n, gen)
+    act = torch.randint(0, 5, (n,), generator=gen, device=device)
+    st1, obs, rew, done, info = core.step(cfg, st, act)
+    r = lambda *shape: torch.rand(shape, generator=gen, dtype=dtype,
+                                  device=device)
+    st1.y.add_(1e-3 * r(*st1.y.shape))
+    st1.t_step.copy_(torch.randint(0, 600, (n,), generator=gen,
+                                   device=device, dtype=torch.int32))
+    for leaf in (st1.vdc_ref, st1.q_ref, st1.rt.timers, obs):
+        leaf.copy_(r(*leaf.shape))
+    for leaf in (st1.rt.tripped, st1.rt.ces):
+        leaf.copy_((r(n) < 0.5).to(dtype))
+    st1 = replace(st1, mppt=MPPTState(p_prev=r(n), direction=r(n)))
+    return cfg, st, (st1, obs, rew, done, info), gen
+
+
+def check_autoreset(device, presets=AUTORESET_PRESETS,
+                    dtypes=AUTORESET_DTYPES, sizes=AUTORESET_SIZES,
+                    patterns=AUTORESET_DONE, timed_n=AUTORESET_TIMED_ENVS):
+    """Phase 37: `env.core.restart_done` (the autoreset kernel on the card)
+    against the plain version on every case, bit for bit, inputs
+    untouched; then ms per launch at ``timed_n`` envs (the last size's
+    stepped batch repeated; None: not timed) beside the bytes bound.
+    Returns the numbers of the kernels line."""
+    import copy
+
+    from pvderx_torch._struct import tree_map
+    from pvderx_torch.diag.roofline import H100
+    from pvderx_torch.env import core
+    from pvderx_torch.ops.autoreset import autoreset_batch, autoreset_bytes
+
+    cuda = torch.device(device).type == "cuda"
+    cases = 0
+    for i, (preset, dtype, n) in enumerate(
+            (p, d, n) for p in presets for d in dtypes for n in sizes):
+        cfg, st, stepped, gen = _stepped_batch(preset, dtype, n, device, i)
+        st1, obs, rew, _, info = stepped
+        line = dict(restarted={}, launches=0, calls=0)
+        for kind in patterns:
+            done = torch.zeros(n, dtype=torch.bool, device=device)
+            if kind == "one":
+                done[n // 2] = True
+            elif kind == "1pct":
+                done = torch.rand(n, generator=gen, device=device) < 0.01
+            elif kind == "all":
+                done[:] = True
+            uv = core.event_draws(cfg, n, gen)
+            los = [None] + ([torch.rand(st1.y.shape, generator=gen,
+                                        dtype=dtype, device=device) * 1e-9]
+                            if dtype == torch.float32 else [])
+            for y_lo in los:
+                inputs = (st, st1, obs, rew, done, info, uv, y_lo)
+                before = copy.deepcopy(inputs)
+                launches = autoreset_batch.launches
+                got = core.restart_done(cfg, done, (st1, obs), uv, y_lo)
+                moved = autoreset_batch.launches - launches
+                want = core.autoreset(done, core._soft_reset(cfg, st1, uv),
+                                      (st1, obs))
+                if y_lo is not None:
+                    want += (core._where_done(
+                        done, torch.zeros_like(y_lo), y_lo),)
+                diff = bitwise_differences(got[:len(want)], want)
+                changed = bitwise_differences(before, inputs)
+                line["restarted"][kind] = int(done.sum())
+                line["launches"] += moved
+                line["calls"] += 1
+                what = (f"autoreset {preset} {dtype} N={n} {kind} lo="
+                        f"{y_lo is not None}")
+                if changed:
+                    raise AssertionError(f"{what} wrote its inputs: "
+                                         f"{changed}")
+                require_bitwise(f"{what} vs plain {diff}", float(len(diff)))
+                if cuda and moved != 1:
+                    raise AssertionError(f"{what}: {moved} launches, not 1")
+                cases += 1
+        phase("autoreset", preset=preset, dtype=str(dtype)[6:], n=n,
+              bitwise=True, inputs_unchanged=True, **line)
+
+    kernel_ms = plain_ms = bytes_ms = None
+    if timed_n:
+        cfg, st, stepped, gen = _stepped_batch("10", torch.float32,
+                                               sizes[-1], device, 99)
+        rep = -(-timed_n // sizes[-1])
+        big = lambda x: (x.repeat(rep, *[1] * (x.dim() - 1))[:timed_n]
+                         if x.dim() else x)
+        st1, obs = tree_map(big, stepped[0]), big(stepped[1])
+        done = torch.rand(timed_n, generator=gen, device=device) < 1 / 600
+        uv = core.event_draws(cfg, timed_n, gen)
+        bytes_ms = 1e3 * autoreset_bytes(timed_n, 1) / H100["hbm_bytes_per_s"]
+        if cuda:
+            kernel_ms = _time_ms(lambda: core.restart_done(
+                cfg, done, (st1, obs), uv), 20, device)
+            plain_ms = _time_ms(lambda: core.autoreset(
+                done, core._soft_reset(cfg, st1, uv), (st1, obs)), 5, device)
+        phase("autoreset", n=timed_n, done_share=float(done.float().mean()),
+              cases=cases, kernel_ms_per_launch=kernel_ms,
+              bytes_bound_ms=bytes_ms, plain_ms=plain_ms,
+              bytes=autoreset_bytes(timed_n, 1))
+    return dict(cases=cases, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                bound_ms=bytes_ms, n=timed_n)
+
+
 def native_kernel_rows(nat, chip, n=N_ENVS):
     """The kernels line's rows of N1-N4 from `run_native`'s numbers: each
     with its float64 bound (`roofline.native_bound_ms`) at its timed shape
@@ -3460,7 +3630,7 @@ def main() -> int:
 
 
 def run_phases(device, kind, card, clock_mhz) -> int:
-    """Phases 2-36, the kernels line, the card line and the last line."""
+    """Phases 2-37, the kernels line, the card line and the last line."""
     from pvderx_torch.diag import roofline
     from pvderx_torch.ops import _build
 
@@ -3528,6 +3698,8 @@ def run_phases(device, kind, card, clock_mhz) -> int:
     notebooks_out = run_notebooks(device, card)
     begin("native")
     native_out = run_native(device, card)
+    begin("autoreset")
+    autoreset_out = check_autoreset(device)
     begin("kernels_line")
     phase("total", seconds=time.perf_counter() - _T0)
 
@@ -3623,7 +3795,20 @@ def run_phases(device, kind, card, clock_mhz) -> int:
             "diag_profiler_trace": prof_out["df32"]["launches"],
             "grad_guard": debug_out["grad_guard"]["k3"]["launches"],
             **dl["k3"]},
-    }, *native_rows]}), flush=True)
+    }, *native_rows, {
+        "name": "autoreset",
+        "route": "cuda",
+        "source": "pvderx_torch/ops/csrc/autoreset.cu",
+        "replaces": None,
+        "launches": main_out["autoreset_launches"],
+        "cases_bitwise": autoreset_out["cases"],
+        "n": autoreset_out["n"],
+        "ms": autoreset_out["kernel_ms"],
+        "plain_ms": autoreset_out["plain_ms"],
+        "bound_ms": autoreset_out["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+    }]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

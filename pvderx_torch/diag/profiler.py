@@ -19,6 +19,10 @@
   profiler records (`torch.profiler`, `trace`): a ``user_annotation`` in
   the chrome trace, and a record of its host and device time that
   `records()` returns. With no profiler recording it does nothing.
+- `counter(name, total, device)`: inside a recorded span of that name, a
+  device slot in which the span's work counts how many of ``total`` items
+  it touched (the autoreset: the envs it restarted); `records()` gives
+  the span's record that ``count`` and ``total``.
 - `Stopwatch`: chained-state throughput timing, synced by `force_sync` at
   its start and by a device sync at its end.
 """
@@ -117,13 +121,15 @@ def trace(logdir: str | None = None):
 
 # The spans recorded while a profiler records, oldest first, each a list
 # [name, parent, host start ns, host end ns, start event, end event,
-# drained]; at most MAX_RECORDS, those beyond counted in `_dropped`.
+# drained, counter]; at most MAX_RECORDS, those beyond counted in
+# `_dropped`. A counter is (device, slot index, total) or None.
 MAX_RECORDS = 131072
 _NULL_SPAN = contextlib.nullcontext()
 _records: list = []
 _open: list = []        # the index of each span entered and not yet left
 _last_exit: dict = {}   # name -> the end event of its latest span
 _dropped = 0
+_slots: dict = {}       # device -> [int64 pool of MAX_RECORDS slots, used]
 
 
 class _Span:
@@ -152,7 +158,7 @@ class _Span:
             start = torch.cuda.Event(enable_timing=True)
             start.record()
         self.rec = [self.name, _open[-1] if _open else None,
-                    time.perf_counter_ns(), None, start, None, drained]
+                    time.perf_counter_ns(), None, start, None, drained, None]
         _open.append(len(_records))
         _records.append(self.rec)
         return self
@@ -180,6 +186,28 @@ def span(name: str):
     return _Span(name)
 
 
+def counter(name: str, total: int, device):
+    """While the innermost open span is a recorded span named ``name``: a
+    one-element int64 slot on ``device``, zeroed, into which the caller
+    adds how many of ``total`` items the span's work touched (a kernel
+    with an atomic, adding no launch and no sync); `records()` gives the
+    span's record ``count``, the slot's value, and ``total``. Otherwise
+    None. The slots of a device are views of one pool, allocated and
+    zeroed at the first request after `clear`: in a harness that leaves
+    the first traced unit out, outside the units it reads."""
+    if not _open or _open[-1] is None or _records[_open[-1]][0] != name:
+        return None
+    dev = torch.device(device)
+    pool = _slots.get(dev)
+    if pool is None:
+        pool = _slots[dev] = [
+            torch.zeros(MAX_RECORDS, dtype=torch.int64, device=dev), 0]
+    k = pool[1]
+    pool[1] += 1
+    _records[_open[-1]][7] = (dev, k, int(total))
+    return pool[0][k:k + 1]
+
+
 def records() -> list:
     """The recorded spans, oldest first, as dicts: ``name``; ``parent``,
     the index of the enclosing recorded span (None at the top);
@@ -187,17 +215,22 @@ def records() -> list:
     span's entry to its exit (the host time where CUDA was not
     initialized); ``drained``, whether the device had finished the
     previous span of the same name when this one was entered (None on the
-    host, or for a name's first span). One device sync resolves the
-    events; a span not yet left reads None times."""
-    if any(r[5] is not None for r in _records):
+    host, or for a name's first span); ``count`` and ``total``, the
+    span's `counter` (None where it has none). One device sync resolves
+    the events and the counters; a span not yet left reads None times."""
+    if any(r[5] is not None for r in _records) or any(
+            d.type == "cuda" for d in _slots):
         torch.cuda.synchronize()
+    counts = {d: pool[:used].tolist() for d, (pool, used) in _slots.items()}
     out = []
-    for name, parent, h0, h1, e0, e1, drained in _records:
+    for name, parent, h0, h1, e0, e1, drained, ctr in _records:
         host_ms = None if h1 is None else (h1 - h0) / 1e6
         device_ms = host_ms if e0 is None else (
             None if e1 is None else e0.elapsed_time(e1))
         out.append({"name": name, "parent": parent, "host_ms": host_ms,
-                    "device_ms": device_ms, "drained": drained})
+                    "device_ms": device_ms, "drained": drained,
+                    "count": None if ctr is None else counts[ctr[0]][ctr[1]],
+                    "total": None if ctr is None else ctr[2]})
     return out
 
 
@@ -212,6 +245,7 @@ def clear():
     _records.clear()
     _open.clear()
     _last_exit.clear()
+    _slots.clear()
     _dropped = 0
 
 
@@ -316,5 +350,6 @@ class Stopwatch:
         return items_per_call / self.elapsed(reps)
 
 
-__all__ = ["force_sync", "trace", "span", "records", "dropped", "clear",
-           "trace_events", "device_op_summary", "compile_report", "Stopwatch"]
+__all__ = ["force_sync", "trace", "span", "counter", "records", "dropped",
+           "clear", "trace_events", "device_op_summary", "compile_report",
+           "Stopwatch"]

@@ -24,10 +24,11 @@ import torch
 
 from pvderx_torch._struct import replace, struct, tree_map
 from pvderx_torch.checks import check_parameters, check_scenario
-from pvderx_torch.diag.profiler import span
+from pvderx_torch.diag.profiler import counter, span
 from pvderx_torch.dist.mesh import draw_rows
 from pvderx_torch.ode import newton_solve
 from pvderx_torch.ode.implicit import WINDOWS as IMPLICIT_WINDOWS
+from pvderx_torch.ops.autoreset import autoreset_batch
 from pvderx_torch.ops.window import (
     P_FIELDS, U_FIELDS, pack_struct, pad_draws, pad_envs, pad_tree,
     rk4_window_batch, unpack_struct, unpad_reset)
@@ -565,24 +566,51 @@ def autoreset(done, restarted, stepped):
             _where_done(done, obs_r, obs))
 
 
+def restart_done(cfg: EnvConfig, done, stepped, uv, y_lo=None):
+    """The autoreset of a stepped batch: `autoreset` of `_soft_reset` (the
+    mid-episode events drawn from ``uv``) where ``done``, else ``stepped``
+    = (state, obs); with ``y_lo``, the df32 tier's lo residual too, zeroed
+    where done. Returns (state, obs, y_lo or None), all fresh where they
+    change: no input is written.
+
+    On the card this is one kernel launch (`ops.autoreset.autoreset_batch`)
+    that does the restart arithmetic of the done envs only; on the CPU the
+    plain version above, which the tests and `chip_smoke.py` hold the
+    kernel to, bit for bit. Inside a recorded ``env.autoreset`` span the
+    envs restarted are counted (`diag.profiler.counter`)."""
+    st1, obs = stepped
+    slot = counter("env.autoreset", done.shape[0], done.device)
+    if done.device.type != "cpu":
+        return autoreset_batch(done, uv, st1, obs, scen=cfg.scen,
+                               w_base=cfg.der.w_base, n_ph=cfg.der.n_ph,
+                               y_lo=y_lo, count=slot)
+    if slot is not None:
+        slot += done.sum()
+    st2, obs2 = autoreset(done, _soft_reset(cfg, st1, uv), stepped)
+    if y_lo is not None:
+        y_lo = _where_done(done, torch.zeros_like(y_lo), y_lo)
+    return st2, obs2, y_lo
+
+
 def step_autoreset(cfg: EnvConfig, st: EnvState, action,
                    generator: torch.Generator, p_pack=None, mesh=None):
-    """`step`, then a branchless restart of the envs that are done: the
-    cached episode-initial state, with fresh mid-episode events drawn from
-    ``generator`` (under a ``mesh``, this rank's rows of the global draw).
-    The batched counterpart of the reference's per-env `step_autoreset`,
-    which draws from the state's own key."""
+    """`step`, then a branchless restart of the envs that are done
+    (`restart_done`): the cached episode-initial state, with fresh
+    mid-episode events drawn from ``generator`` (under a ``mesh``, this
+    rank's rows of the global draw). The batched counterpart of the
+    reference's per-env `step_autoreset`, which draws from the state's own
+    key."""
     with span("env.step"):
         st1, obs, reward, done, info = step(cfg, st, action, p_pack)
         with span("env.autoreset"):
             uv = event_draws(cfg, st.y.shape[0], generator, mesh)
-            st2, obs2 = autoreset(done, _soft_reset(cfg, st1, uv),
-                                  (st1, obs))
+            st2, obs2, _ = restart_done(cfg, done, (st1, obs), uv)
     return st2, obs2, reward, done, info
 
 
 __all__ = [
     "ScenarioConfig", "EnvConfig", "EnvState", "make_env_config", "reset",
-    "step", "step_autoreset", "autoreset", "unalias", "event_draws",
+    "step", "step_autoreset", "autoreset", "restart_done", "unalias",
+    "event_draws",
     "OBS_DIM", "N_ACTIONS", "N_ACTIONS_ANOM", "ACT_DIM_CONT", "INTEGRATORS",
 ]

@@ -201,9 +201,9 @@ class PVDERVectorEnv(_VBASE):
         cfg, n = self.cfg, self.num_envs
         st1, obs_f, rew, done, info = core.step(
             cfg, self._state, _actions(cfg, actions, (n,)), self._p_pack)
-        restarted = core._soft_reset(
-            cfg, st1, core.event_draws(cfg, n, self._gen, self.mesh))
-        self._state, obs = core.autoreset(done, restarted, (st1, obs_f))
+        self._state, obs, _ = core.restart_done(
+            cfg, done, (st1, obs_f),
+            core.event_draws(cfg, n, self._gen, self.mesh))
         info_np = _host(info)
         terminated = info_np.pop("terminated")
         truncated = info_np.pop("truncated")

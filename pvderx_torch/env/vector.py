@@ -4,7 +4,8 @@ All env state is a dataclass of [N, ...] tensors and one step advances all N
 envs. The window integration runs through `ops.window.rk4_window_batch`
 (the CUDA kernel on the card, its plain version on the CPU), or for the df32
 precision tier through `ops.dualfloat.rk4_window_batch_df`. Auto-reset is a
-`torch.where` select between the stepped state and a soft-reset state.
+select between the stepped state and a soft-reset state
+(`core.restart_done`: one kernel on the card).
 
 Under a ``mesh`` (`pvderx_torch.dist`), each rank holds its contiguous
 N/W rows of the global batch and steps only those: one window-kernel
@@ -56,8 +57,9 @@ def make_batch_fns(cfg: core.EnvConfig, mesh=None):
 def _step_df_impl(cfg: core.EnvConfig, carry, actions, generator,
                   p_pack=None, mesh=None):
     """The df32 step of every env: `core._pre_window`, the double-float
-    window, `core._post_window` on hi, then the autoreset select, which
-    zeroes y_lo where done (the cached y0 is an exact-f32 episode anchor)."""
+    window, `core._post_window` on hi, then the autoreset
+    (`core.restart_done`), which zeroes y_lo where done (the cached y0 is
+    an exact-f32 episode anchor)."""
     state, y_lo = carry
     with span("env.step"):
         t, exog, mppt, flag = core._pre_window(cfg, state, actions)
@@ -71,9 +73,8 @@ def _step_df_impl(cfg: core.EnvConfig, carry, actions, generator,
             cfg, state, exog, mppt, t, y1, flag)
         with span("env.autoreset"):
             uv = core.event_draws(cfg, state.y.shape[0], generator, mesh)
-            st2, obs2 = core.autoreset(done, core._soft_reset(cfg, st1, uv),
-                                       (st1, obs))
-            y_lo2 = core._where_done(done, torch.zeros_like(y1_lo), y1_lo)
+            st2, obs2, y_lo2 = core.restart_done(cfg, done, (st1, obs), uv,
+                                                 y1_lo)
     return (st2, y_lo2), obs2, reward, done, info
 
 

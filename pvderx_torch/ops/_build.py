@@ -48,6 +48,9 @@ ENTRIES = {
     # (y, p, u, out, iters, n, n_ph, max_iters, tol, stream)
     "pvderx_native_newton_steady": (
         [_PTR] * 5 + [_INT] * 3 + [_F64, _PTR], _INT),
+    # the env step's autoreset (autoreset.cu):
+    # (in pointers, out pointers, constants, restarts, n, n_ph, dtype, stream)
+    "pvderx_autoreset": ([_PTR] * 4 + [_INT] * 3 + [_PTR], _INT),
     "pvderx_error_string": ([_INT], ctypes.c_char_p),
 }
 

@@ -23,14 +23,14 @@ def test_torch_build_library_name_covers_every_device_source(tmp_path):
     shutil.copytree(_build.CSRC, src)
     names = {p.name for p in src.iterdir()}
     assert {"rhs.cuh", "df.cuh", "window.cu", "fleet_window.cu",
-            "window_df.cu", "native.cu"} <= names
+            "window_df.cu", "native.cu", "autoreset.cu"} <= names
     base = _build.library_path(src)
     assert base == _build.library_path()          # same sources, same name
     assert base.parent == _build.BUILD_DIR
 
     seen = {base}
     for name in ("rhs.cuh", "df.cuh", "window.cu", "fleet_window.cu",
-                 "window_df.cu", "native.cu"):
+                 "window_df.cu", "native.cu", "autoreset.cu"):
         f = src / name
         text = f.read_text()
         f.write_text(text + "\n// edited\n")
@@ -67,7 +67,7 @@ def test_torch_build_declares_every_c_entry():
     assert {"pvderx_rk4_window", "pvderx_rk4_fleet_window",
             "pvderx_rk4_window_df", "pvderx_native_rhs",
             "pvderx_native_rk4_window", "pvderx_native_dp54_window",
-            "pvderx_native_newton_steady",
+            "pvderx_native_newton_steady", "pvderx_autoreset",
             "pvderx_error_string"} <= set(found)
     assert set(found) == set(_build.ENTRIES)
     for name, (res, params) in found.items():

@@ -310,6 +310,15 @@ def test_torch_chip_smoke_bitwise_differences_are_bit_for_bit():
         "/tensors/y", "/scalars/n"]
     assert bitwise_differences({"x": [1, 2]}, {"x": [1]}) == ["/x"]
     assert bitwise_differences(torch.zeros(2), torch.zeros(3)) == [""]
+    # dataclasses of tensors, field by field
+    from pvderx_torch.scenario.mppt_voltvar import MPPTState
+
+    m = MPPTState(p_prev=torch.tensor([0.0, 1.0]), direction=torch.ones(2))
+    assert bitwise_differences((m, None), (MPPTState(
+        p_prev=torch.tensor([0.0, 1.0]), direction=torch.ones(2)), None)) == []
+    assert bitwise_differences(m, MPPTState(
+        p_prev=torch.tensor([-0.0, 1.0]), direction=torch.ones(2))) == [
+        "/p_prev"]
 
 
 def test_torch_chip_smoke_diag_phases_run_on_the_cpu():
@@ -574,6 +583,54 @@ def test_torch_chip_smoke_native_phase_runs_on_the_cpu(capsys):
         assert r["bound_ms"] > 0 and r["bound_by"] in ("bytes", "operations")
         path, line = r["replaces"].split(":")
         assert path == "pvderx/native/src/pvderx_native.cpp" and int(line) > 0
+
+
+def test_torch_chip_smoke_autoreset_phase_runs_on_the_cpu(capsys,
+                                                        monkeypatch):
+    """Phase 37 on the CPU, where `restart_done` is the plain version: one
+    line per (preset, dtype, N), every pattern of done envs bit for bit
+    and the inputs untouched, the df32 tier's y_lo in float32 only, then
+    the timed line's bytes bound; a restart that differs from the plain
+    version in one bit, or that writes its input, fails the phase."""
+    import json
+
+    import torch
+
+    import chip_smoke as cs
+    from pvderx_torch.env import core
+
+    out = cs.check_autoreset("cpu", sizes=(5,), timed_n=10)
+    lines = [json.loads(ln[len("[autoreset] "):])
+             for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("[autoreset] ")]
+    assert [(ln["preset"], ln["dtype"], ln["calls"]) for ln in lines[:4]] == [
+        ("10", "float32", 8), ("10", "float64", 4), ("50", "float32", 8),
+        ("50", "float64", 4)]
+    assert all(ln["bitwise"] and ln["inputs_unchanged"]
+               and ln["restarted"]["all"] == 5 and ln["restarted"]["one"] == 1
+               for ln in lines[:4])
+    assert out["cases"] == 24 and out["kernel_ms"] is None
+    assert lines[4]["bytes"] == 10 * (1 + 2 * 79 * 4)
+    restart = core.restart_done
+
+    def flipped(cfg, done, stepped, uv, y_lo=None):
+        st, obs, lo = restart(cfg, done, stepped, uv, y_lo)
+        return st, -obs, lo
+
+    monkeypatch.setattr(core, "restart_done", flipped)
+    with pytest.raises(AssertionError, match="not bitwise equal"):
+        cs.check_autoreset("cpu", presets=("10",), dtypes=(torch.float64,),
+                           sizes=(5,), timed_n=None)
+
+    def writes(cfg, done, stepped, uv, y_lo=None):
+        out = restart(cfg, done, stepped, uv, y_lo)
+        stepped[0].rt.timers.add_(1.0)
+        return out
+
+    monkeypatch.setattr(core, "restart_done", writes)
+    with pytest.raises(AssertionError, match="wrote its inputs"):
+        cs.check_autoreset("cpu", presets=("10",), dtypes=(torch.float64,),
+                           sizes=(5,), timed_n=None)
 
 
 def test_torch_chip_smoke_native_warp_efficiency():
