@@ -6,9 +6,10 @@
 Phases, one line each (a failing phase raises, so the script exits non-zero):
 
 1. device   — the card's name and power limit (nvidia-smi).
-2. build    — nvcc builds the kernels (K1-K3, N1-N4, the autoreset) from
-              pvderx_torch/ops/csrc/ (one nvcc per source, in parallel) and
-              reports each kernel's registers and spills.
+2. build    — nvcc builds the kernels (K1-K3, N1-N4, the autoreset, the
+              post-window glue) from pvderx_torch/ops/csrc/ (one nvcc per
+              source, in parallel) and reports each kernel's registers and
+              spills.
 3. kernel   — the CUDA window kernel (K1) against its plain torch version on the
               same seeded inputs (presets 10 and 50, const-Vdc, unbalanced
               3-phase, disconnect/cessation, a ragged N): max abs error
@@ -227,6 +228,26 @@ Phases, one line each (a failing phase raises, so the script exits non-zero):
               the plain version's ms. Phases 5, 13 and 21 require one
               autoreset launch per env step.
 
+38. post_window — the env step's post-window kernel (`ops.post_window`,
+              csrc/post_window.cu, through `env.core._post_window`) against
+              the plain version (`_post_window_plain`) on one step's
+              inputs forced across every threshold the step tests (each
+              ride-through zone, trips, the horizon, the anomaly reward's
+              events): presets 10 and 50, float32 and float64, the anomaly
+              reward on and off, the ride-through enabled and disabled, a
+              ragged N = 37 and 32768 envs; done, terminated, truncated,
+              the trip latch, trip_now, the cessation flag, the timers and
+              t_step equal, the floats bit for bit at preset 10 (one phase)
+              and at preset 50 within 1e-6 of each leaf's largest
+              magnitude (torch's reduction orders the three-phase means),
+              the state's y, info["vdc"] and info["tripped"] the same
+              tensors as the plain version's, one launch each, no input
+              changed. Then ms per launch at 2097152 envs (device time:
+              the calls queue behind a device sleep) beside its bytes
+              bound, the plain version's ms and the kernel's registers and
+              spills. Phases 5, 13 and 21 require one post-window launch
+              per env step.
+
 Every line carries `at_s`, the seconds since the script started. The
 float64 LSODA truths of phases 4, 8, 12, 19, 22 and 36 run in worker
 processes from the start (`prefetch_truths`), beside the build and the
@@ -345,14 +366,19 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def _time_ms(fn, reps: int, device) -> float:
+def _time_ms(fn, reps: int, device, ahead: bool = False) -> float:
     """Device time per call by CUDA events around ``reps`` calls, each end
-    synced by `diag.profiler.force_sync` of a call's output."""
+    synced by `diag.profiler.force_sync` of a call's output. With
+    ``ahead``, the calls queue behind a ~50-ms device sleep, so that the
+    host has enqueued them all before the first runs: the events then time
+    the device even where a call's host work outlasts its kernel."""
     from pvderx_torch.diag.profiler import force_sync
 
     force_sync(fn())
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if ahead:
+        torch.cuda._sleep(100_000_000)
     start.record()
     for _ in range(reps):
         out = fn()
@@ -520,11 +546,13 @@ def _zero_counts():
     from pvderx_torch.ops.window import rk4_fleet_window_batch, rk4_window_batch
 
     from pvderx_torch.ops.autoreset import autoreset_batch
+    from pvderx_torch.ops.post_window import post_window_batch
 
     rk4_window_batch.launches = 0
     rk4_fleet_window_batch.launches = 0
     rk4_window_batch_df.launches = 0
     autoreset_batch.launches = 0
+    post_window_batch.launches = 0
 
 
 def _drive(roll, state, obs, warm, chunk):
@@ -555,15 +583,17 @@ def _drive(roll, state, obs, warm, chunk):
     return state, obs, out
 
 
-def _check_drive(name, out, launches, cuda, autoreset=None):
-    """A drive's checks; ``autoreset``: the autoreset kernel's launches,
-    which must equal the steps as the window kernel's do."""
+def _check_drive(name, out, launches, cuda, **glue):
+    """A drive's checks; ``glue``: the launches of the env step's glue
+    kernels by name (``autoreset``, ``post_window``), each of which must
+    equal the steps as the window kernel's do."""
     if launches != out["steps"] and cuda:
         raise AssertionError(
             f"{name}: kernel launches {launches} != steps {out['steps']}")
-    if autoreset is not None and autoreset != out["steps"] and cuda:
-        raise AssertionError(f"{name}: autoreset launches {autoreset} != "
-                             f"steps {out['steps']}")
+    for kernel, n in glue.items():
+        if n != out["steps"] and cuda:
+            raise AssertionError(f"{name}: {kernel} launches {n} != steps "
+                                 f"{out['steps']}")
     if not out["finite"]:
         raise AssertionError(f"{name}: non-finite obs or reward")
     if out["dones"] == 0:
@@ -588,6 +618,7 @@ def run_main(device, card, n_envs=N_ENVS, n_sub=N_SUB, warm=WARM_STEPS,
     """Phases 5 and 6: the batched env at full width through the kernel."""
     from pvderx_torch.env import make_batch_fns, make_env_config, rollout
     from pvderx_torch.ops.autoreset import autoreset_batch
+    from pvderx_torch.ops.post_window import post_window_batch
     from pvderx_torch.ops.window import (
         P_FIELDS, U_FIELDS, pack_struct, rk4_window_batch,
         rk4_window_batch_ref)
@@ -610,6 +641,7 @@ def run_main(device, card, n_envs=N_ENVS, n_sub=N_SUB, warm=WARM_STEPS,
         chunk)
     launches = rk4_window_batch.launches
     ar_launches = autoreset_batch.launches
+    pw_launches = post_window_batch.launches
     peak_mib = (torch.cuda.max_memory_allocated(device) / 2 ** 20
                 if cuda else None)
 
@@ -636,13 +668,16 @@ def run_main(device, card, n_envs=N_ENVS, n_sub=N_SUB, warm=WARM_STEPS,
           plain_window_ms=plain_ms, preset50_ms_per_launch=k1_50_ms,
           peak_mem_mib=peak_mib,
           launches=launches, autoreset_launches=ar_launches,
+          post_window_launches=pw_launches,
           steps=out["steps"], dones=out["dones"],
           rew_sum=out["rew_sum"], finite=out["finite"])
     phase("linear", card=card, two_chunks_over_one=out["ratio"],
           band=[1.5, 2.7])
-    _check_drive("main", out, launches, cuda, autoreset=ar_launches)
+    _check_drive("main", out, launches, cuda, autoreset=ar_launches,
+                 post_window=pw_launches)
     return dict(launches=launches, autoreset_launches=ar_launches,
-                kernel_ms=kernel_ms, plain_ms=plain_ms, preset50_ms=k1_50_ms,
+                post_window_launches=pw_launches, kernel_ms=kernel_ms,
+                plain_ms=plain_ms, preset50_ms=k1_50_ms,
                 env_steps_per_s=n_envs * chunk / out["chunk_s"])
 
 
@@ -1002,6 +1037,7 @@ def run_df_main(device, card, n_envs=N_ENVS, n_sub=N_SUB, warm=WARM_STEPS,
     from pvderx_torch.diag.roofline import window_bound_ms
     from pvderx_torch.ops.autoreset import autoreset_batch
     from pvderx_torch.ops.dualfloat import rk4_window_batch_df
+    from pvderx_torch.ops.post_window import post_window_batch
     from pvderx_torch.ops.window import (
         P_FIELDS, U_FIELDS, pack_struct, rk4_window_batch)
 
@@ -1025,6 +1061,7 @@ def run_df_main(device, card, n_envs=N_ENVS, n_sub=N_SUB, warm=WARM_STEPS,
         warm, chunk)
     launches = rk4_window_batch_df.launches
     ar_launches = autoreset_batch.launches
+    pw_launches = post_window_batch.launches
     peak_mib = (torch.cuda.max_memory_allocated(device) / 2 ** 20
                 if cuda else None)
     state, y_lo = carry
@@ -1062,11 +1099,13 @@ def run_df_main(device, card, n_envs=N_ENVS, n_sub=N_SUB, warm=WARM_STEPS,
           k3_preset50_bound_ms=bound50["bound_ms"],
           peak_mem_mib=peak_mib,
           launches=launches, autoreset_launches=ar_launches,
+          post_window_launches=pw_launches,
           steps=out["steps"], dones=out["dones"], rew_sum=out["rew_sum"],
           finite=out["finite"], max_abs_y_lo=lo_max)
     phase("df_linear", card=card, two_chunks_over_one=out["ratio"],
           band=[1.5, 2.7])
-    _check_drive("df_main", out, launches, cuda, autoreset=ar_launches)
+    _check_drive("df_main", out, launches, cuda, autoreset=ar_launches,
+                 post_window=pw_launches)
     if not lo_max > 0.0:
         raise AssertionError("df_main: y_lo is zero everywhere")
     return dict(launches=launches, kernel_ms=kernel_ms, plain_ms=plain_ms,
@@ -1512,6 +1551,7 @@ def run_gym(device, card, main_rate=None, n_envs=N_ENVS, n_sub=N_SUB,
     once per step."""
     from pvderx_torch.env import gym_adapter as ga
     from pvderx_torch.ops.autoreset import autoreset_batch
+    from pvderx_torch.ops.post_window import post_window_batch
     from pvderx_torch.ops.window import rk4_fleet_window_batch, rk4_window_batch
 
     cuda = torch.device(device).type == "cuda"
@@ -1534,12 +1574,14 @@ def run_gym(device, card, main_rate=None, n_envs=N_ENVS, n_sub=N_SUB,
     secs = time.perf_counter() - t
     launches = rk4_window_batch.launches
     ar_launches = autoreset_batch.launches
+    pw_launches = post_window_batch.launches
     rate = n_envs * vec_steps / secs
     out = dict(gymnasium=ga._HAS_GYM, vector=dict(
         n_envs=n_envs, n_sub=n_sub, steps=vec_steps, reset_s=reset_s,
         step_ms=1e3 * secs / vec_steps, env_steps_per_s=rate,
         main_env_steps_per_s=main_rate, launches=launches,
-        autoreset_launches=ar_launches, dones=dones))
+        autoreset_launches=ar_launches, post_window_launches=pw_launches,
+        dones=dones))
     phase("gym", card=card, adapter="PVDERVectorEnv", gymnasium=ga._HAS_GYM,
           **out["vector"])
     if not finite:
@@ -1552,6 +1594,9 @@ def run_gym(device, card, main_rate=None, n_envs=N_ENVS, n_sub=N_SUB,
     if cuda and ar_launches != vec_steps:
         raise AssertionError(f"gym vector: autoreset launches {ar_launches} "
                              f"!= steps {vec_steps}")
+    if cuda and pw_launches != vec_steps:
+        raise AssertionError(f"gym vector: post-window launches "
+                             f"{pw_launches} != steps {vec_steps}")
 
     single_acts = [k % 5 for k in range(steps)]
     ms, n = _drive_adapter(ga.PVDEREnv("10", n_sub=n_sub, device=device),
@@ -3517,6 +3562,216 @@ def check_autoreset(device, presets=AUTORESET_PRESETS,
                 bound_ms=bytes_ms, n=timed_n)
 
 
+# Phase 38: the post-window kernel's cases, (preset, dtype, N) x the anomaly
+# reward x the ride-through, and the batch at which it is timed (the
+# benchmark cell's)
+POST_WINDOW_PRESETS = ("10", "50")
+POST_WINDOW_DTYPES = (torch.float32, torch.float64)
+POST_WINDOW_SIZES = (37, N_ENVS)
+# Where a case is not held bit for bit (three phases), each float leaf
+# within this share of its largest magnitude: torch's reduction, not the
+# kernel, sets the order of the three-phase means' sums
+POST_WINDOW_TOL = 1e-6
+# the leaves that equal the plain version's exactly in every case
+POST_WINDOW_EXACT = ("t_step", "timers", "tripped", "ces", "done",
+                     "info.tripped", "info.trip_now", "info.terminated",
+                     "info.truncated")
+POST_WINDOW_TIMED_ENVS = 2097152
+
+
+def _post_window_case(preset, dtype, n, device, seed):
+    """(state, (exog, mppt, t, y1, flag), p_pack, u_pack): a reset of ``n``
+    envs and one step's inputs to the post-window glue, forced across
+    every threshold the step tests: a quarter of the envs one step from
+    the horizon, the zone timers at 0.8-1.05 of their limits, a fifth
+    tripped already, the grid voltage over 0.3-1.35 pu (every voltage
+    zone), the PLL integrator over +-0.05 (the frequency zones); a share of
+    the envs with a frequency deviation, a negative sequence, an
+    insolation step or a load, so that the anomaly reward sees both
+    answers; y1 the reset's y with noise."""
+    from pvderx_torch._struct import replace
+    from pvderx_torch.env import core, make_env_config
+    from pvderx_torch.ops.window import P_FIELDS, U_FIELDS, pack_struct
+
+    cfg = make_env_config(preset, dtype=dtype, device=device,
+                          anomaly_detect=True)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    r = lambda *shape: torch.rand(shape, generator=gen, dtype=dtype,
+                                  device=device)
+    some = lambda share: r(n) < share
+    zero = torch.zeros(n, dtype=dtype, device=device)
+    st, _ = core.reset(cfg, n, gen)
+    t_step = torch.randint(0, cfg.horizon - 1, (n,), generator=gen,
+                           device=device, dtype=torch.int32)
+    t_step = torch.where(some(0.25), cfg.horizon - 1, t_step).to(torch.int32)
+    rt = replace(st.rt, timers=cfg.rt.t_lim * (0.8 + 0.25 * r(n, 6)),
+                 tripped=some(0.2).to(dtype))
+    st = replace(st, t_step=t_step, rt=rt)
+    act = torch.randint(0, core.N_ACTIONS_ANOM, (n,), generator=gen,
+                        device=device)
+    t, exog, mppt, flag = core._pre_window(cfg, st, act)
+    exog = replace(
+        exog, v_g=0.3 + 1.05 * r(n),
+        dw_g=torch.where(some(0.25), 0.04 * r(n) - 0.02, zero),
+        v_g2=torch.where(some(0.25), 0.2 * r(n), zero),
+        phi_g2=2.0 * np.pi * r(n),
+        s_irr=torch.where(some(0.5), st.s0 * (0.2 + 0.8 * r(n)), exog.s_irr),
+        g_load=torch.where(some(0.2), 0.5 * r(n), zero),
+        b_load=torch.where(some(0.2), 0.2 * r(n) - 0.1, zero))
+    y1 = st.y + 1e-3 * r(*st.y.shape)
+    y1[:, 6 * cfg.der.n_ph + 3] = 0.1 * r(n) - 0.05
+    return (st, (exog, mppt, t, y1, flag), pack_struct(st.der, P_FIELDS),
+            pack_struct(exog, U_FIELDS))
+
+
+def _post_window_leaves(out) -> dict:
+    """The leaves a post-window step computes, by name."""
+    st, obs, reward, done, info = out
+    return {"t_step": st.t_step, "timers": st.rt.timers,
+            "tripped": st.rt.tripped, "ces": st.rt.ces, "obs": obs,
+            "reward": reward, "done": done,
+            **{f"info.{k}": v for k, v in info.items()}}
+
+
+def _post_window_gaps(got, want) -> dict:
+    """{leaf: its largest gap over the plain leaf's largest magnitude} of
+    every computed leaf that is not bit for bit the plain version's (inf
+    where dtype or shape differ, or a leaf is not floating)."""
+    gaps, want = {}, _post_window_leaves(want)
+    for k, a in _post_window_leaves(got).items():
+        b = want[k]
+        if not bitwise_differences(a, b):
+            continue
+        if (a.dtype != b.dtype or a.shape != b.shape
+                or not a.is_floating_point()):
+            gaps[k] = float("inf")
+            continue
+        scale = float(b.double().abs().max())
+        gaps[k] = float((a.double() - b.double()).abs().max()) / max(
+            scale, 1e-300)
+    return gaps
+
+
+def check_post_window(device, presets=POST_WINDOW_PRESETS,
+                      dtypes=POST_WINDOW_DTYPES, sizes=POST_WINDOW_SIZES,
+                      timed_n=POST_WINDOW_TIMED_ENVS):
+    """Phase 38: `env.core._post_window` (the post-window kernel on the
+    card) against the plain version `_post_window_plain` on every case:
+    bit for bit at preset 10 (one phase), elsewhere the exact leaves
+    (`POST_WINDOW_EXACT`) equal and the floats within `POST_WINDOW_TOL`;
+    the rest of the state the same tensors, ``info["vdc"]`` a view of y1
+    and ``info["tripped"]`` the state's latch, inputs untouched, one launch
+    a call. Then ms per launch at ``timed_n`` envs (the last size's
+    case repeated; None: not timed) beside the bytes bound, the plain
+    version's ms and the kernel's registers and spills. At the larger
+    sizes the ride-through, where enabled, enters every zone and trips
+    envs, and envs end terminated and truncated. Returns the numbers of
+    the kernels line."""
+    import copy
+
+    from pvderx_torch._struct import tree_map
+    from pvderx_torch.diag.roofline import H100
+    from pvderx_torch.env import core, make_env_config
+    from pvderx_torch.ops.post_window import (
+        post_window_batch, post_window_bytes)
+    from pvderx_torch.ops.window import P_FIELDS, U_FIELDS, pack_struct
+
+    cuda = torch.device(device).type == "cuda"
+    cases = 0
+    for i, (preset, dtype, n) in enumerate(
+            (p, d, n) for p in presets for d in dtypes for n in sizes):
+        st, args, pk, uk = _post_window_case(preset, dtype, n, device, i)
+        y1 = args[3]
+        held = "bitwise" if preset == "10" else "tol"
+        line = dict(held=held, launches=0, calls=0, bitwise_calls=0,
+                    max_gap=0.0, terminated=[], truncated=[], zones=[])
+        for anomaly in (False, True):
+            for rt_on in (True, False):
+                cfg = make_env_config(preset, dtype=dtype, device=device,
+                                      rt_enabled=rt_on, anomaly_detect=anomaly)
+                what = (f"post_window {preset} {dtype} N={n} anomaly="
+                        f"{anomaly} rt={rt_on}")
+                inputs = (st, args, pk, uk)
+                before = copy.deepcopy(inputs)
+                launches = post_window_batch.launches
+                got = core._post_window(cfg, st, *args, pk, uk)
+                moved = post_window_batch.launches - launches
+                want = core._post_window_plain(cfg, st, *args)
+                changed = bitwise_differences(before, inputs)
+                if changed:
+                    raise AssertionError(f"{what} wrote its inputs: {changed}")
+                kept = [p for p in bitwise_differences(got[0], want[0])
+                        if p not in ("/t_step", "/rt/timers", "/rt/tripped",
+                                     "/rt/ces")]
+                alias = (got[0].y is y1 and got[4]["vdc"].untyped_storage()
+                         .data_ptr() == y1.untyped_storage().data_ptr()
+                         and got[4]["tripped"] is got[0].rt.tripped
+                         and got[0].vdc_ref is want[0].vdc_ref)
+                if kept or not alias:
+                    raise AssertionError(f"{what}: state leaves {kept} differ "
+                                         f"or aliases broken ({alias})")
+                gaps = _post_window_gaps(got, want)
+                exact = {k: v for k, v in gaps.items()
+                         if k in POST_WINDOW_EXACT}
+                if exact:
+                    raise AssertionError(f"{what}: exact leaves differ {exact}")
+                if held == "bitwise":
+                    require_bitwise(f"{what} vs plain {sorted(gaps)}",
+                                    float(len(gaps)))
+                worst = max(gaps.values(), default=0.0)
+                if not worst <= POST_WINDOW_TOL:
+                    raise AssertionError(f"{what}: {gaps} > {POST_WINDOW_TOL}")
+                if cuda and moved != 1:
+                    raise AssertionError(f"{what}: {moved} launches, not 1")
+                info = got[4]
+                zones = (got[0].rt.timers > 0).any(0).tolist()
+                if n >= 1000 and not (rt_on == all(zones)
+                                      and rt_on == bool(info["trip_now"]
+                                                        .any())
+                                      and bool(info["terminated"].any())
+                                      and bool(info["truncated"].any())):
+                    raise AssertionError(f"{what}: zones {zones}, a threshold "
+                                         f"not crossed")
+                line["launches"] += moved
+                line["calls"] += 1
+                line["bitwise_calls"] += not gaps
+                line["max_gap"] = max(line["max_gap"], worst)
+                line["terminated"].append(int(info["terminated"].sum()))
+                line["truncated"].append(int(info["truncated"].sum()))
+                line["zones"].append(sum(zones))
+                cases += 1
+        phase("post_window", preset=preset, dtype=str(dtype)[6:], n=n,
+              inputs_unchanged=True, tol=POST_WINDOW_TOL, **line)
+
+    kernel_ms = plain_ms = bytes_ms = regs = None
+    if timed_n:
+        st, args, _, _ = _post_window_case("10", torch.float32, sizes[-1],
+                                           device, 99)
+        rep = -(-timed_n // sizes[-1])
+        big = lambda x: (x.repeat(rep, *[1] * (x.dim() - 1))[:timed_n]
+                         if x.dim() else x)
+        st, args = tree_map(big, st), tuple(tree_map(big, a) for a in args)
+        pk, uk = pack_struct(st.der, P_FIELDS), pack_struct(args[0], U_FIELDS)
+        cfg = make_env_config("10", dtype=torch.float32, device=device)
+        bytes_ms = (1e3 * post_window_bytes(timed_n, 1)
+                    / H100["hbm_bytes_per_s"])
+        if cuda:
+            from pvderx_torch.ops import _build
+
+            kernel_ms = _time_ms(lambda: core._post_window(
+                cfg, st, *args, pk, uk), 20, device, ahead=True)
+            plain_ms = _time_ms(lambda: core._post_window_plain(
+                cfg, st, *args), 5, device)
+            regs = {k: v for k, v in ptxas_summary(_build.ptxas_report())
+                    .items() if k.startswith("post_window_kernel")}
+        phase("post_window", n=timed_n, cases=cases,
+              kernel_ms_per_launch=kernel_ms, bytes_bound_ms=bytes_ms,
+              plain_ms=plain_ms, bytes=post_window_bytes(timed_n, 1),
+              ptxas=regs)
+    return dict(cases=cases, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                bound_ms=bytes_ms, n=timed_n, ptxas=regs)
+
+
 def native_kernel_rows(nat, chip, n=N_ENVS):
     """The kernels line's rows of N1-N4 from `run_native`'s numbers: each
     with its float64 bound (`roofline.native_bound_ms`) at its timed shape
@@ -3564,11 +3819,21 @@ def native_kernel_rows(nat, chip, n=N_ENVS):
 
 
 def kernel_name(mangled: str) -> str:
-    """`window_kernel<3>`, `native_dp54_kernel<1>` and the like for a
-    window or float64 engine kernel's mangled or demangled name; any other
-    name as it is."""
+    """`window_kernel<3>`, `native_dp54_kernel<1>`,
+    `post_window_kernel<float,1>` and the like for a window, float64 engine
+    or env glue kernel's mangled or demangled name; any other name as it
+    is."""
     import re
 
+    glue = r"(autoreset_kernel|post_window_kernel)"
+    k = re.search(glue + r"I([fd])((?:Li\d+E)+)E", mangled)
+    if k:
+        args = re.findall(r"Li(\d+)E", k.group(3))
+        kind = {"f": "float", "d": "double"}[k.group(2)]
+        return f"{k.group(1)}<{kind},{','.join(args)}>"
+    k = re.search(glue + r"<(float|double), *(\d+)>", mangled)
+    if k:
+        return f"{k.group(1)}<{k.group(2)},{k.group(3)}>"
     name = r"((?:fleet_)?window(?:_df)?_kernel|native_[a-z0-9]+_kernel)"
     k = re.search(name + r"I((?:Li\d+E)+)E", mangled)
     if k:
@@ -3630,7 +3895,7 @@ def main() -> int:
 
 
 def run_phases(device, kind, card, clock_mhz) -> int:
-    """Phases 2-37, the kernels line, the card line and the last line."""
+    """Phases 2-38, the kernels line, the card line and the last line."""
     from pvderx_torch.diag import roofline
     from pvderx_torch.ops import _build
 
@@ -3700,6 +3965,8 @@ def run_phases(device, kind, card, clock_mhz) -> int:
     native_out = run_native(device, card)
     begin("autoreset")
     autoreset_out = check_autoreset(device)
+    begin("post_window")
+    post_window_out = check_post_window(device)
     begin("kernels_line")
     phase("total", seconds=time.perf_counter() - _T0)
 
@@ -3807,6 +4074,20 @@ def run_phases(device, kind, card, clock_mhz) -> int:
         "plain_ms": autoreset_out["plain_ms"],
         "bound_ms": autoreset_out["bound_ms"],
         "bound_by": "bytes",
+        "library_ms": None,
+    }, {
+        "name": "post_window",
+        "route": "cuda",
+        "source": "pvderx_torch/ops/csrc/post_window.cu",
+        "replaces": None,
+        "launches": main_out["post_window_launches"],
+        "cases": post_window_out["cases"],
+        "n": post_window_out["n"],
+        "ms": post_window_out["kernel_ms"],
+        "plain_ms": post_window_out["plain_ms"],
+        "bound_ms": post_window_out["bound_ms"],
+        "bound_by": "bytes",
+        "ptxas": post_window_out["ptxas"],
         "library_ms": None,
     }]}), flush=True)
     print(card, flush=True)

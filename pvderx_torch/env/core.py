@@ -29,6 +29,7 @@ from pvderx_torch.dist.mesh import draw_rows
 from pvderx_torch.ode import newton_solve
 from pvderx_torch.ode.implicit import WINDOWS as IMPLICIT_WINDOWS
 from pvderx_torch.ops.autoreset import autoreset_batch
+from pvderx_torch.ops.post_window import post_window_batch
 from pvderx_torch.ops.window import (
     P_FIELDS, U_FIELDS, pack_struct, pad_draws, pad_envs, pad_tree,
     rk4_window_batch, unpack_struct, unpad_reset)
@@ -478,45 +479,63 @@ def _anomaly_active(st: EnvState, exog):
     return dev.to(st.y.dtype)
 
 
-def _post_window(cfg: EnvConfig, st: EnvState, exog, mppt, t, y1, flag):
-    """Steps 4-5: post-window measurements, ride-through, obs/reward/done."""
-    with span("env.post_window"):
-        dtype = st.y.dtype
-        dt = cfg.dt_ctrl
-        vdc_ref = exog.vdc_ref
-        q_ref = exog.q_ref
-        # 4. post-window measurements + ride-through update
-        g1 = _algebra(y1, t + dt, st.der, exog)
-        v_mag1 = torch.hypot(g1.v_pos.re, g1.v_pos.im)
-        rt1 = rt_update(st.rt, cfg.rt, v_mag1, g1.f_meas, dt)
-        trip_now = rt1.tripped * (1.0 - st.rt.tripped)
+def _post_window(cfg: EnvConfig, st: EnvState, exog, mppt, t, y1, flag,
+                 p_pack=None, u_pack=None):
+    """Steps 4-5: post-window measurements, ride-through, obs/reward/done.
 
-        # 5. outputs
-        t_next = (st.t_step + 1).to(dtype)
-        st1 = replace(st, y=y1, t_step=st.t_step + 1, vdc_ref=vdc_ref,
-                      q_ref=q_ref, rt=rt1, mppt=mppt)
-        # obs reflects post-step connection status (a trip this step shows up)
-        obs = _obs(cfg, st1, g1, replace(exog, conn=1.0 - rt1.tripped), t_next)
-        vdc = y1[:, 6 * cfg.der.n_ph]
-        reward = _reward(cfg, vdc, vdc_ref, g1.q_pcc, q_ref, v_mag1, trip_now)
-        if cfg.anomaly_detect:
-            anom = _anomaly_active(st, exog)
-            reward = reward + (flag * (anom * cfg.r_anom_tp
-                                       - (1.0 - anom) * cfg.r_anom_fp)
-                               - (1.0 - flag) * anom * cfg.r_anom_fn)
-        terminated = rt1.tripped > 0.5
-        truncated = st1.t_step >= cfg.horizon
-        done = terminated | truncated
-        v2 = rhs_core.neg_seq(g1.v, cfg.der.n_ph, like(y1))
-        info = {
-            "vdc": vdc, "v_mag": v_mag1, "f_meas": g1.f_meas,
-            # PCC neg-seq voltage magnitude
-            "v_unb": torch.hypot(v2.re, v2.im),
-            "p_pcc": g1.p_pcc, "q_pcc": g1.q_pcc, "p_pv": g1.p_pv,
-            "tripped": rt1.tripped, "trip_now": trip_now,
-            "terminated": terminated, "truncated": truncated,
-        }
-        return st1, obs, reward, done, info
+    On the card this is one kernel launch
+    (`ops.post_window.post_window_batch`, which takes the window's
+    ``p_pack`` and ``u_pack`` and packs them where they are None); on the
+    CPU the plain version `_post_window_plain`, which the tests and
+    `chip_smoke.py` hold the kernel to. Returns (state, obs, reward, done,
+    info); no input is written."""
+    with span("env.post_window"):
+        if y1.device.type != "cpu":
+            return post_window_batch(cfg, st, exog, mppt, t, y1, flag,
+                                     p_pack=p_pack, u_pack=u_pack)
+        return _post_window_plain(cfg, st, exog, mppt, t, y1, flag)
+
+
+def _post_window_plain(cfg: EnvConfig, st: EnvState, exog, mppt, t, y1,
+                       flag):
+    """The plain version of `_post_window`: torch operations on [N]
+    columns."""
+    dtype = st.y.dtype
+    dt = cfg.dt_ctrl
+    vdc_ref = exog.vdc_ref
+    q_ref = exog.q_ref
+    # 4. post-window measurements + ride-through update
+    g1 = _algebra(y1, t + dt, st.der, exog)
+    v_mag1 = torch.hypot(g1.v_pos.re, g1.v_pos.im)
+    rt1 = rt_update(st.rt, cfg.rt, v_mag1, g1.f_meas, dt)
+    trip_now = rt1.tripped * (1.0 - st.rt.tripped)
+
+    # 5. outputs
+    t_next = (st.t_step + 1).to(dtype)
+    st1 = replace(st, y=y1, t_step=st.t_step + 1, vdc_ref=vdc_ref,
+                  q_ref=q_ref, rt=rt1, mppt=mppt)
+    # obs reflects post-step connection status (a trip this step shows up)
+    obs = _obs(cfg, st1, g1, replace(exog, conn=1.0 - rt1.tripped), t_next)
+    vdc = y1[:, 6 * cfg.der.n_ph]
+    reward = _reward(cfg, vdc, vdc_ref, g1.q_pcc, q_ref, v_mag1, trip_now)
+    if cfg.anomaly_detect:
+        anom = _anomaly_active(st, exog)
+        reward = reward + (flag * (anom * cfg.r_anom_tp
+                                   - (1.0 - anom) * cfg.r_anom_fp)
+                           - (1.0 - flag) * anom * cfg.r_anom_fn)
+    terminated = rt1.tripped > 0.5
+    truncated = st1.t_step >= cfg.horizon
+    done = terminated | truncated
+    v2 = rhs_core.neg_seq(g1.v, cfg.der.n_ph, like(y1))
+    info = {
+        "vdc": vdc, "v_mag": v_mag1, "f_meas": g1.f_meas,
+        # PCC neg-seq voltage magnitude
+        "v_unb": torch.hypot(v2.re, v2.im),
+        "p_pcc": g1.p_pcc, "q_pcc": g1.q_pcc, "p_pv": g1.p_pv,
+        "tripped": rt1.tripped, "trip_now": trip_now,
+        "terminated": terminated, "truncated": truncated,
+    }
+    return st1, obs, reward, done, info
 
 
 def step(cfg: EnvConfig, st: EnvState, action, p_pack=None):
@@ -526,12 +545,13 @@ def step(cfg: EnvConfig, st: EnvState, action, p_pack=None):
     `ops.window.rk4_window_batch`: the CUDA kernel for tensors on the card,
     its plain version for tensors on the CPU. ``p_pack`` is the [29, N]
     params pack, hoisted by callers that step the same params many times (it
-    is computed here when omitted). The implicit schemes integrate
-    `rhs_core.rhs` through `ode.implicit` (no kernel; ``p_pack`` unused),
-    on the CPU over the batch padded as the plain windows pad theirs
-    (`ops.window.pad_envs`), so that an env's step does not depend on the
-    batch size."""
+    is computed here when omitted); it and the exog pack go on to
+    `_post_window`. The implicit schemes integrate `rhs_core.rhs` through
+    `ode.implicit` (no kernel; no pack is made), on the CPU over the batch
+    padded as the plain windows pad theirs (`ops.window.pad_envs`), so
+    that an env's step does not depend on the batch size."""
     t, exog, mppt, flag = _pre_window(cfg, st, action)
+    u_pack = None
     with span("env.window"):
         if cfg.integrator != "rk4":
             n = st.y.shape[0]
@@ -543,11 +563,11 @@ def step(cfg: EnvConfig, st: EnvState, action, p_pack=None):
         else:
             if p_pack is None:
                 p_pack = pack_struct(st.der, P_FIELDS)
-            y1 = rk4_window_batch(st.y, t, p_pack,
-                                  pack_struct(exog, U_FIELDS),
+            u_pack = pack_struct(exog, U_FIELDS)
+            y1 = rk4_window_batch(st.y, t, p_pack, u_pack,
                                   n_ph=cfg.der.n_ph, n_sub=cfg.n_sub,
                                   dt=cfg.dt_ctrl)
-    return _post_window(cfg, st, exog, mppt, t, y1, flag)
+    return _post_window(cfg, st, exog, mppt, t, y1, flag, p_pack, u_pack)
 
 
 def _where_done(done, a, b):

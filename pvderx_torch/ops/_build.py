@@ -3,10 +3,11 @@
 Every ``csrc/*.cu`` is compiled with nvcc at first use, one nvcc process per
 source, all started together, and the objects are linked into one shared
 library in ``ops/_build/`` (listed in .gitignore). The library is named by a
-hash of every ``*.cu`` and ``*.cuh`` under ``csrc/`` and of the flags, so an
-edit to a shared header builds a new library. It is loaded with ``ctypes``:
-the sources have a plain C interface and include no PyTorch header, so a
-build takes seconds. Nothing here runs at import time.
+hash of every ``*.cu`` and ``*.cuh`` under ``csrc/`` and of the flags (a
+source's own flags, `SOURCE_FLAGS`, included), so an edit to a shared header
+builds a new library. It is loaded with ``ctypes``: the sources have a plain
+C interface and include no PyTorch header, so a build takes seconds. Nothing
+here runs at import time.
 """
 from __future__ import annotations
 
@@ -22,6 +23,9 @@ CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# flags of one source beside NVCC_FLAGS: post_window.cu rounds every + - *
+# once, as torch's one-operation kernels do (no FMA contraction)
+SOURCE_FLAGS = {"post_window.cu": ["-fmad=false"]}
 
 _PTR, _INT, _F32, _F64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                           ctypes.c_double)
@@ -51,6 +55,9 @@ ENTRIES = {
     # the env step's autoreset (autoreset.cu):
     # (in pointers, out pointers, constants, restarts, n, n_ph, dtype, stream)
     "pvderx_autoreset": ([_PTR] * 4 + [_INT] * 3 + [_PTR], _INT),
+    # the env step's post-window glue (post_window.cu):
+    # (in pointers, out pointers, constants, n, n_ph, horizon, dtype, stream)
+    "pvderx_post_window": ([_PTR] * 3 + [_INT] * 4 + [_PTR], _INT),
     "pvderx_error_string": ([_INT], ctypes.c_char_p),
 }
 
@@ -74,6 +81,8 @@ def library_path(src_dir: Path = CSRC) -> Path:
     """Where the library built from ``src_dir`` lives: named by a hash of the
     flags and of every source and header there (name and content)."""
     tag = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name, flags in sorted(SOURCE_FLAGS.items()):
+        tag.update(f"\0{name} {' '.join(flags)}".encode())
     for f in sorted([*src_dir.glob("*.cu"), *src_dir.glob("*.cuh")]):
         tag.update(f.name.encode() + b"\0" + f.read_bytes())
     return BUILD_DIR / f"libpvderx_kernels_{tag.hexdigest()[:16]}.so"
@@ -89,8 +98,9 @@ def build() -> Path:
     stem = f"{so.stem}.{os.getpid()}"
     srcs = sorted(CSRC.glob("*.cu"))
     objs = [BUILD_DIR / f"{stem}.{src.stem}.o" for src in srcs]
-    procs = [subprocess.Popen([nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj),
-                               str(src)], stdout=subprocess.PIPE,
+    procs = [subprocess.Popen([nvcc(), *NVCC_FLAGS,
+                               *SOURCE_FLAGS.get(src.name, ()), "-c", "-o",
+                               str(obj), str(src)], stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for src, obj in zip(srcs, objs)]
     outs = [p.communicate()[0] for p in procs]

@@ -14,6 +14,10 @@
 - A phase that raises ends `chip_smoke.main` with one ``[failed]`` line
   naming it and exit code 1; a subprocess past its timeout is stopped and
   named with its phase and the end of its stderr (`wait_for`).
+- `kernel_name` reads the env glue kernels' names (`autoreset_kernel`,
+  `post_window_kernel`, templated over the type and the phases).
+- Phase 38 (`check_post_window`) runs on the CPU and fails on a one-bit
+  difference or a write into its inputs.
 - Phase 35 (`run_notebooks`) runs `run_cells --device cpu --tiny`;
   `run_cells` never runs a cell tagged ``plot``.
 """
@@ -101,6 +105,28 @@ def test_torch_chip_smoke_kernel_name_short_forms():
         == "fleet_window_kernel<1,256>"
     assert kernel_name("void (anonymous namespace)::window_kernel<3>(float "
                        "const*, float*, int, int, float)") == "window_kernel<3>"
+
+
+def test_torch_chip_smoke_glue_kernel_names():
+    """The env glue kernels, templated over the type and the phases, by
+    their mangled and their demangled names; none reads as K1."""
+    pw = "_ZN53_GLOBAL__N__1a2b3c4d_14_post_window_cu_5e6f7a8b18post_window_kernel"
+    assert kernel_name(f"{pw}IfLi1EEEvNS_4ArgsIT_EEi") \
+        == "post_window_kernel<float,1>"
+    assert kernel_name(f"{pw}IdLi3EEEvNS_4ArgsIT_EEi") \
+        == "post_window_kernel<double,3>"
+    assert kernel_name("_ZN12_GLOBAL__N_116autoreset_kernelIfLi3EEEvNS_4Args"
+                       "IT_EEi") == "autoreset_kernel<float,3>"
+    assert kernel_name("void (anonymous namespace)::post_window_kernel<float, "
+                       "1>((anonymous namespace)::Args<float>, int)") \
+        == "post_window_kernel<float,1>"
+    report = (f"ptxas info    : Compiling entry function '{pw}IfLi1EEEvNS_4Args"
+              "IT_EEi' for 'sm_90a'\nptxas info    : Function properties for "
+              f"{pw}IfLi1EEEvNS_4ArgsIT_EEi\n    0 bytes stack frame, 0 bytes "
+              "spill stores, 0 bytes spill loads\nptxas info    : Used 48 "
+              "registers, used 0 barriers, 6656 bytes smem\n")
+    assert ptxas_summary(report) == {"post_window_kernel<float,1>": dict(
+        spill_stores=0, spill_loads=0, registers=48)}
 
 
 def test_torch_chip_smoke_sass_issue_floor_flat_and_looped():
@@ -631,6 +657,54 @@ def test_torch_chip_smoke_autoreset_phase_runs_on_the_cpu(capsys,
     with pytest.raises(AssertionError, match="wrote its inputs"):
         cs.check_autoreset("cpu", presets=("10",), dtypes=(torch.float64,),
                            sizes=(5,), timed_n=None)
+
+
+def test_torch_chip_smoke_post_window_phase_runs_on_the_cpu(capsys,
+                                                          monkeypatch):
+    """Phase 38 on the CPU, where `_post_window` is the plain version: one
+    line per (preset, dtype, N), four calls each (the anomaly reward and the
+    ride-through on and off), bit for bit and the inputs untouched, then
+    the timed line's bytes bound; a step that differs from the plain
+    version in one bit, or that writes its input, fails the phase."""
+    import json
+
+    import torch
+
+    import chip_smoke as cs
+    from pvderx_torch.env import core
+
+    out = cs.check_post_window("cpu", sizes=(5,), timed_n=10)
+    lines = [json.loads(ln[len("[post_window] "):])
+             for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("[post_window] ")]
+    assert [(ln["preset"], ln["dtype"], ln["held"]) for ln in lines[:4]] == [
+        ("10", "float32", "bitwise"), ("10", "float64", "bitwise"),
+        ("50", "float32", "tol"), ("50", "float64", "tol")]
+    assert all(ln["calls"] == ln["bitwise_calls"] == 4
+               and ln["inputs_unchanged"] and ln["zones"][1::2] == [0, 0]
+               for ln in lines[:4])
+    assert out["cases"] == 16 and out["kernel_ms"] is None
+    assert lines[4]["bytes"] == 10 * 295
+    post_window = core._post_window
+
+    def flipped(*args):
+        st, obs, reward, done, info = post_window(*args)
+        return st, obs, reward, done, {**info, "p_pv": -info["p_pv"]}
+
+    monkeypatch.setattr(core, "_post_window", flipped)
+    with pytest.raises(AssertionError, match="not bitwise equal"):
+        cs.check_post_window("cpu", presets=("10",), dtypes=(torch.float32,),
+                             sizes=(5,), timed_n=None)
+
+    def writes(*args):
+        out = post_window(*args)
+        args[1].rt.timers.add_(1.0)
+        return out
+
+    monkeypatch.setattr(core, "_post_window", writes)
+    with pytest.raises(AssertionError, match="wrote its inputs"):
+        cs.check_post_window("cpu", presets=("50",), dtypes=(torch.float64,),
+                             sizes=(5,), timed_n=None)
 
 
 def test_torch_chip_smoke_native_warp_efficiency():
