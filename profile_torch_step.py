@@ -7,9 +7,6 @@
     python3 profile_torch_step.py --sass     # registers, SASS and issue floor
     python3 profile_torch_step.py --kernels  # ms per launch of K1, K2, K3
     python3 profile_torch_step.py --outputs FILE [--against OTHER]
-    python3 profile_torch_step.py --gate-window SEED [SEED ...]
-    python3 profile_torch_step.py --jacobian cuda|cpu
-    python3 profile_torch_step.py --trace-edges REPS
 
 Runs the main path (preset 10, f32, n_sub=64, 32768 envs, zero-action policy,
 autoreset), with ``--fleet`` the fleet path (preset 10, f32, n_sub=64,
@@ -50,30 +47,6 @@ cases, K2 on its seven fleet cases, at n_sub=64) and saves the outputs to
 FILE (.npz). With ``--against OTHER`` (a file saved the same way, e.g. by
 another checkout) it prints, per kernel and case, the max abs difference
 and whether the two are equal bit for bit.
-
-``--gate-window SEED ...`` trains the per-unit fleet learning gate
-(`pvderx_torch.learn.gates`, M = 4, 32 envs, n_sub=40) on the card from
-each SEED, and at every GATE_EVERY-th env step holds K2's output against
-the plain fleet window run on a CPU copy of the same inputs (the window
-the gate's CPU twin runs), both against that plain window in float64. One
-JSON line per seed: the windows checked, the max abs K2 - plain (f32)
-difference, each one's max abs error against float64, and the gate's
-trained / random / gain.
-
-``--trace-edges REPS`` traces three main-path steps REPS times with
-`torch.profiler` alone and REPS times with `diag.profiler.trace` (idle
-guards around the block), in turns, and counts per way the kernel launches
-whose kernel event the trace dropped, and where in the block they were.
-
-``--jacobian DEVICE`` times the two ways to take the Jacobian of the
-single-DER RHS (preset 10, float32, a reset state on DEVICE, the sag's
-0.5 pu grid): torch's forward mode, `vmap(jacfwd)` of the one-env
-residual, and the complex step of `pvderx_torch.ode.implicit`
-(`rhs_and_jacobian`, one evaluation of the RHS on complex copies), at
-N = 1, 128 and 32768 envs, each the mean of 10 calls after one, synced;
-and the plain batched RHS beside them. One JSON line per N: the ms of
-each and the largest difference of the two Jacobians relative to the
-largest entry. On "cpu" it measures the host, not a card.
 """
 from __future__ import annotations
 
@@ -87,7 +60,6 @@ import tempfile
 import time
 
 import torch
-from torch.profiler import ProfilerActivity, profile
 
 from pvderx_torch.diag.roofline import H100, at_clock, lane_issue_per_s
 
@@ -95,7 +67,6 @@ from pvderx_torch.diag.roofline import H100, at_clock, lane_issue_per_s
 N_ENVS, N_SUB, STEPS, WARM, TIMED = 32768, 64, 20, 10, 200
 FLEET_ENVS, FLEET_M = 4096, 16
 SMS, SCHEDULERS = H100["sms"], 4       # warp schedulers per SM
-GATE_EVERY = 25
 
 
 def sass_loops(sass: str) -> dict:
@@ -299,174 +270,6 @@ def kernel_outputs(path: str, against: str | None) -> int:
     return 0
 
 
-def gate_window(card: str, seeds: list[int]) -> int:
-    """The --gate-window mode (see the module docstring)."""
-    from pvderx_torch.env import fleet as fleet_env
-    from pvderx_torch.learn import gates
-    from pvderx_torch.ops.window import (rk4_fleet_window_batch,
-                                         rk4_fleet_window_batch_ref)
-
-    for seed in seeds:
-        calls, diff, err_k2, err_plain = 0, [], [], []
-
-        def checked(y, t0, p_pack, u_pack, **kw):
-            nonlocal calls
-            out = rk4_fleet_window_batch(y, t0, p_pack, u_pack, **kw)
-            if calls % GATE_EVERY == 0:
-                cpu = [a.cpu() for a in (y, t0, p_pack, u_pack)]
-                plain = rk4_fleet_window_batch_ref(*cpu, **kw).double()
-                f64 = rk4_fleet_window_batch_ref(
-                    *(a.double() for a in cpu), **kw)
-                k2 = out.cpu().double()
-                diff.append(float((k2 - plain).abs().max()))
-                err_k2.append(float((k2 - f64).abs().max()))
-                err_plain.append(float((plain - f64).abs().max()))
-            calls += 1
-            return out
-
-        fleet_env.rk4_fleet_window_batch = checked
-        try:
-            trained, random, margin = gates.gate_fleet_per_unit("cuda", seed)
-        finally:
-            fleet_env.rk4_fleet_window_batch = rk4_fleet_window_batch
-        print(json.dumps({
-            "mode": "gate_window", "card": card, "seed": seed,
-            "windows": calls, "checked": len(diff),
-            "k2_vs_plain_max_abs": max(diff), "k2_vs_f64_max_abs": max(err_k2),
-            "plain_vs_f64_max_abs": max(err_plain),
-            "k2_vs_f64_mean_of_max": sum(err_k2) / len(err_k2),
-            "plain_vs_f64_mean_of_max": sum(err_plain) / len(err_plain),
-            "trained": trained, "random": random, "gain": trained - random}),
-            flush=True)
-    return 0
-
-
-def jacobian_times(device: str) -> int:
-    """``--jacobian``: forward mode vs the complex step (module doc)."""
-    import dataclasses
-    from functools import partial
-
-    from pvderx_torch.env import core, make_env_config
-    from pvderx_torch.ode.implicit import rhs_and_jacobian
-    from pvderx_torch.ops.window import P_FIELDS, U_FIELDS, pack_struct
-    from pvderx_torch.physics.xp import TorchXP
-
-    where = (torch.cuda.get_device_name(0) if device == "cuda" else
-             f"cpu (host), torch {torch.__version__}")
-    cfg = make_env_config("10", dtype=torch.float32, n_sub=N_SUB,
-                          device=device)
-    one = partial(core._rhs_one, n_ph=1, xp=TorchXP(torch.float32, device))
-    jac_fwd = torch.func.vmap(torch.func.jacfwd(one))
-    for n in (1, 128, N_ENVS):
-        st, _ = core.reset(cfg, n, torch.Generator(device=device).manual_seed(0))
-        t0 = torch.zeros(n, device=device)
-        _, exog, _, _ = core._pre_window(
-            cfg, st, torch.zeros(n, dtype=torch.int64, device=device))
-        exog = dataclasses.replace(exog, v_g=exog.v_g * 0.5)
-        pk = pack_struct(st.der, P_FIELDS).T
-        uk = pack_struct(exog, U_FIELDS).T
-        calls = {
-            "jacfwd": lambda: jac_fwd(st.y, pk, uk),
-            "complex_step": lambda: rhs_and_jacobian(
-                lambda yy: core._rhs(yy, t0, st.der, exog), st.y)[1],
-            "plain_rhs": lambda: core._rhs(st.y, t0, st.der, exog),
-        }
-        ms, out = {}, {}
-        for name, fn in calls.items():
-            out[name] = fn()
-            if device == "cuda":
-                torch.cuda.synchronize()
-            t = time.perf_counter()
-            for _ in range(10):
-                fn()
-            if device == "cuda":
-                torch.cuda.synchronize()
-            ms[name] = 1e3 * (time.perf_counter() - t) / 10
-        a, b = out["jacfwd"].double(), out["complex_step"].double()
-        print(json.dumps({"jacobian": where, "n_envs": n, "ms": ms,
-                          "max_rel_diff": float((a - b).abs().max()
-                                                / b.abs().max()),
-                          "jacfwd_dtype": str(out["jacfwd"].dtype)}),
-              flush=True)
-    return 0
-
-
-def _launch_and_kernel_events(events):
-    """(kernel-launch runtime events, kernel events) of a chrome trace, each
-    by its correlation id."""
-    launches = {e["args"]["correlation"]: e for e in events
-                if e.get("cat") == "cuda_runtime" and "Launch" in e.get(
-                    "name", "") and "correlation" in e.get("args", {})}
-    kernels = {e["args"]["correlation"]: e for e in events
-               if e.get("cat") == "kernel" and "correlation" in e.get(
-                   "args", {})}
-    return launches, kernels
-
-
-def trace_edges(card: str, reps: int) -> int:
-    """``--trace-edges REPS``: whether a `torch.profiler` trace keeps every
-    kernel of a block that starts right after the profiler does. Three
-    main-path steps (32768 envs, n_sub=64) are traced ``reps`` times each
-    way, in turns: "plain", `torch.profiler.profile` around the steps, and
-    "guarded", `diag.profiler.trace` (the steps between idle guards). Per
-    trace, a kernel launch (a runtime launch event) whose kernel event is
-    missing is dropped; one JSON line per way: the traces with a drop, the
-    drops, how late the latest dropped launch came after the first launch
-    (ms), K1's traced count per trace (3 launched)."""
-    from torch.profiler import tensorboard_trace_handler
-
-    from pvderx_torch.diag.profiler import trace, trace_events
-    from pvderx_torch.env import make_batch_fns, make_env_config
-
-    cfg = make_env_config("10", dtype=torch.float32, n_sub=N_SUB,
-                          device="cuda")
-    reset_batch, step_batch = make_batch_fns(cfg)
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    state, _ = reset_batch(N_ENVS, gen)
-    a = torch.zeros(N_ENVS, dtype=torch.int64, device="cuda")
-
-    def steps(st):
-        for _ in range(3):
-            st = step_batch(st, a, gen)[0]
-        return st
-
-    def plain(d):
-        return profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA],
-                       on_trace_ready=tensorboard_trace_handler(
-                           d, use_gzip=True))
-
-    state = steps(state)
-    torch.cuda.synchronize()
-    out = {w: dict(traces=0, with_drops=0, drops=0, latest_drop_ms=0.0,
-                   k1_traced=[]) for w in ("plain", "guarded")}
-    for r in range(reps):
-        for way in (("plain", "guarded") if r % 2 == 0
-                    else ("guarded", "plain")):
-            with tempfile.TemporaryDirectory() as d:
-                with (plain(d) if way == "plain" else trace(d)):
-                    state = steps(state)
-                    torch.cuda.synchronize()
-                launches, kernels = _launch_and_kernel_events(
-                    trace_events(d))
-            first = min(e["ts"] for e in launches.values())
-            lost = [e for c, e in launches.items() if c not in kernels]
-            o = out[way]
-            o["traces"] += 1
-            o["with_drops"] += bool(lost)
-            o["drops"] += len(lost)
-            if lost:
-                o["latest_drop_ms"] = max(o["latest_drop_ms"], max(
-                    (e["ts"] - first) / 1e3 for e in lost))
-            o["k1_traced"].append(sum(
-                1 for e in kernels.values() if "window_kernel" in e["name"]))
-    for way, o in out.items():
-        print(json.dumps({"card": card, "trace_edges": way,
-                          "launches_per_trace": len(launches), **o}),
-              flush=True)
-    return 0
-
-
 def traced_spans(roll, cfg, state, obs, policy, gen) -> dict:
     """Two rollouts of `STEPS` steps under `diag.profiler.trace`: the
     device ms per step of each span under the second ``rollout`` span
@@ -508,15 +311,10 @@ def main() -> int:
     mode.add_argument("--sass", action="store_true")
     mode.add_argument("--kernels", action="store_true")
     mode.add_argument("--outputs", metavar="FILE")
-    mode.add_argument("--gate-window", metavar="SEED", type=int, nargs="+")
-    mode.add_argument("--jacobian", choices=("cuda", "cpu"))
-    mode.add_argument("--trace-edges", metavar="REPS", type=int)
     ap.add_argument("--against", metavar="OTHER")
     args = ap.parse_args()
     if args.against and not args.outputs:
         ap.error("--against needs --outputs")
-    if args.jacobian == "cpu":
-        return jacobian_times("cpu")
     if not torch.cuda.is_available():
         print("profile_torch_step: no CUDA device is available", file=sys.stderr)
         return 1
@@ -533,12 +331,6 @@ def main() -> int:
         return time_kernels(card)
     if args.outputs:
         return kernel_outputs(args.outputs, args.against)
-    if args.gate_window:
-        return gate_window(card, args.gate_window)
-    if args.jacobian:
-        return jacobian_times("cuda")
-    if args.trace_edges:
-        return trace_edges(card, args.trace_edges)
     path = "fleet" if args.fleet else "df" if args.df else "single"
     kw = dict(dtype=torch.float32, n_sub=N_SUB, device="cuda")
     if path == "fleet":

@@ -5,10 +5,10 @@
   tensors of two dtypes, the counterparts of ``jax_debug_nans`` and strict
   dtype promotion. It traps NaN only, not inf (the event tables are padded
   with +inf), and lets Python scalars mix (JAX's weak types). The dispatch
-  mode cannot see inside the window kernels' ctypes launches, so while the
-  trap is on the launchers check their own outputs
-  (`ops.window.check_outputs` reads the mode's ``traps_nans``). The trap reads every output on the host:
-  a debugging aid, not a fast path.
+  mode cannot see inside the kernels' ctypes launches, so while the trap is
+  on every launch checks its float outputs (`ops._build.launch`;
+  `ops._build.check_outputs` reads the mode's ``traps_nans``). The trap
+  reads every output on the host: a debugging aid, not a fast path.
 - `checked_step(cfg)`: the batched env step with its state checked on the
   device (finite, Vdc inside a physical band), the flags returned beside
   the outputs instead of synced inside the step; ``error.throw()`` raises

@@ -28,8 +28,8 @@ from pvderx_torch.diag.profiler import counter, span
 from pvderx_torch.dist.mesh import draw_rows
 from pvderx_torch.ode import newton_solve
 from pvderx_torch.ode.implicit import WINDOWS as IMPLICIT_WINDOWS
-from pvderx_torch.ops.autoreset import autoreset_batch
-from pvderx_torch.ops.post_window import post_window_batch
+from pvderx_torch.ops.autoreset import autoreset_batch, scenario_constants
+from pvderx_torch.ops.post_window import post_window_batch, step_constants
 from pvderx_torch.ops.window import (
     P_FIELDS, U_FIELDS, pack_struct, pad_draws, pad_envs, pad_tree,
     rk4_window_batch, unpack_struct, unpad_reset)
@@ -332,12 +332,12 @@ def steady_state(der, exog0, iters: int):
 # ---------------------------------------------------------------------------
 # observations / reward (SPEC.md §9)
 # ---------------------------------------------------------------------------
-def _obs(cfg: EnvConfig, st: EnvState, g: rhs_core.Algebra, exog, t_next):
+def _obs(cfg: EnvConfig, y, g: rhs_core.Algebra, exog, t_next):
     return torch.stack([
         g.i_pos.re, g.i_pos.im, g.v_pos.re, g.v_pos.im,
-        st.y[:, 6 * cfg.der.n_ph],
+        y[:, 6 * cfg.der.n_ph],
         g.p_pcc, g.q_pcc,
-        st.vdc_ref, st.q_ref,
+        exog.vdc_ref, exog.q_ref,
         exog.s_irr / 1000.0,
         10.0 * (g.f_meas - 1.0),
         t_next / cfg.horizon,
@@ -387,7 +387,7 @@ def reset(cfg: EnvConfig, n: int, generator: torch.Generator, mesh=None):
         init_res=res, y0=y0, s0=s0, tc0=tc0,
         obs0=torch.zeros(n, OBS_DIM, dtype=dtype, device=dev), ppv0=g.p_pv,
     )
-    obs = _obs(cfg, st, g, exog0, zeros)
+    obs = _obs(cfg, y0, g, exog0, zeros)
     return unpad_reset(replace(st, obs0=obs), obs, n_out, n)
 
 
@@ -484,26 +484,53 @@ def _post_window(cfg: EnvConfig, st: EnvState, exog, mppt, t, y1, flag,
     """Steps 4-5: post-window measurements, ride-through, obs/reward/done.
 
     On the card this is one kernel launch
-    (`ops.post_window.post_window_batch`, which takes the window's
-    ``p_pack`` and ``u_pack`` and packs them where they are None); on the
-    CPU the plain version `_post_window_plain`, which the tests and
-    `chip_smoke.py` hold the kernel to. Returns (state, obs, reward, done,
-    info); no input is written."""
+    (`ops.post_window.post_window_batch`, on the window's ``p_pack`` and
+    ``u_pack``, packed here where they are None); on the CPU the plain
+    version `_post_window_plain`, which the tests and `chip_smoke.py` hold
+    the kernel to. Returns (state, obs, reward, done, info) (`_stepped`);
+    no input is written."""
     with span("env.post_window"):
-        if y1.device.type != "cpu":
-            return post_window_batch(cfg, st, exog, mppt, t, y1, flag,
-                                     p_pack=p_pack, u_pack=u_pack)
-        return _post_window_plain(cfg, st, exog, mppt, t, y1, flag)
+        if y1.device.type == "cpu":
+            return _post_window_plain(cfg, st, exog, mppt, t, y1, flag)
+        if p_pack is None:
+            p_pack = pack_struct(st.der, P_FIELDS)
+        if u_pack is None:
+            u_pack = pack_struct(exog, U_FIELDS)
+        anom = cfg.anomaly_detect
+        leaves = post_window_batch(
+            y1, t, st.t_step, p_pack, u_pack, st.rt.timers, st.rt.tripped,
+            cfg.rt.t_lim, cfg.rt.enable, flag if anom else None,
+            st.s0 if anom else None, step_constants(cfg),
+            n_ph=cfg.der.n_ph, horizon=cfg.horizon)
+        return _stepped(cfg, st, exog, mppt, y1, leaves)
+
+
+def _stepped(cfg: EnvConfig, st: EnvState, exog, mppt, y1, leaves):
+    """(state, obs, reward, done, info) of a step from the leaves its
+    post-window glue computed (`ops.post_window.OUT_LEAVES`, by name): the
+    state's y is the window's y1, ``info["vdc"]`` a view of it,
+    ``info["tripped"]`` the state's new trip latch, the setpoints the
+    exog's; every other leaf as computed."""
+    rt1 = replace(st.rt, timers=leaves["timers"], tripped=leaves["tripped"],
+                  ces=leaves["ces"])
+    st1 = replace(st, y=y1, t_step=leaves["t_step"], vdc_ref=exog.vdc_ref,
+                  q_ref=exog.q_ref, rt=rt1, mppt=mppt)
+    info = {
+        "vdc": y1[:, 6 * cfg.der.n_ph], "v_mag": leaves["v_mag"],
+        "f_meas": leaves["f_meas"], "v_unb": leaves["v_unb"],
+        "p_pcc": leaves["p_pcc"], "q_pcc": leaves["q_pcc"],
+        "p_pv": leaves["p_pv"], "tripped": rt1.tripped,
+        "trip_now": leaves["trip_now"], "terminated": leaves["terminated"],
+        "truncated": leaves["truncated"],
+    }
+    return st1, leaves["obs"], leaves["reward"], leaves["done"], info
 
 
 def _post_window_plain(cfg: EnvConfig, st: EnvState, exog, mppt, t, y1,
                        flag):
     """The plain version of `_post_window`: torch operations on [N]
     columns."""
-    dtype = st.y.dtype
     dt = cfg.dt_ctrl
-    vdc_ref = exog.vdc_ref
-    q_ref = exog.q_ref
     # 4. post-window measurements + ride-through update
     g1 = _algebra(y1, t + dt, st.der, exog)
     v_mag1 = torch.hypot(g1.v_pos.re, g1.v_pos.im)
@@ -511,31 +538,27 @@ def _post_window_plain(cfg: EnvConfig, st: EnvState, exog, mppt, t, y1,
     trip_now = rt1.tripped * (1.0 - st.rt.tripped)
 
     # 5. outputs
-    t_next = (st.t_step + 1).to(dtype)
-    st1 = replace(st, y=y1, t_step=st.t_step + 1, vdc_ref=vdc_ref,
-                  q_ref=q_ref, rt=rt1, mppt=mppt)
+    t_step = st.t_step + 1
     # obs reflects post-step connection status (a trip this step shows up)
-    obs = _obs(cfg, st1, g1, replace(exog, conn=1.0 - rt1.tripped), t_next)
-    vdc = y1[:, 6 * cfg.der.n_ph]
-    reward = _reward(cfg, vdc, vdc_ref, g1.q_pcc, q_ref, v_mag1, trip_now)
+    obs = _obs(cfg, y1, g1, replace(exog, conn=1.0 - rt1.tripped),
+               t_step.to(y1.dtype))
+    reward = _reward(cfg, y1[:, 6 * cfg.der.n_ph], exog.vdc_ref, g1.q_pcc,
+                     exog.q_ref, v_mag1, trip_now)
     if cfg.anomaly_detect:
         anom = _anomaly_active(st, exog)
         reward = reward + (flag * (anom * cfg.r_anom_tp
                                    - (1.0 - anom) * cfg.r_anom_fp)
                            - (1.0 - flag) * anom * cfg.r_anom_fn)
     terminated = rt1.tripped > 0.5
-    truncated = st1.t_step >= cfg.horizon
-    done = terminated | truncated
+    truncated = t_step >= cfg.horizon
     v2 = rhs_core.neg_seq(g1.v, cfg.der.n_ph, like(y1))
-    info = {
-        "vdc": vdc, "v_mag": v_mag1, "f_meas": g1.f_meas,
-        # PCC neg-seq voltage magnitude
-        "v_unb": torch.hypot(v2.re, v2.im),
-        "p_pcc": g1.p_pcc, "q_pcc": g1.q_pcc, "p_pv": g1.p_pv,
-        "tripped": rt1.tripped, "trip_now": trip_now,
-        "terminated": terminated, "truncated": truncated,
-    }
-    return st1, obs, reward, done, info
+    return _stepped(cfg, st, exog, mppt, y1, dict(
+        obs=obs, reward=reward, done=terminated | truncated,
+        terminated=terminated, truncated=truncated, t_step=t_step,
+        timers=rt1.timers, tripped=rt1.tripped, ces=rt1.ces, v_mag=v_mag1,
+        f_meas=g1.f_meas,
+        v_unb=torch.hypot(v2.re, v2.im),   # PCC neg-seq voltage magnitude
+        p_pcc=g1.p_pcc, q_pcc=g1.q_pcc, p_pv=g1.p_pv, trip_now=trip_now))
 
 
 def step(cfg: EnvConfig, st: EnvState, action, p_pack=None):
@@ -600,16 +623,31 @@ def restart_done(cfg: EnvConfig, done, stepped, uv, y_lo=None):
     envs restarted are counted (`diag.profiler.counter`)."""
     st1, obs = stepped
     slot = counter("env.autoreset", done.shape[0], done.device)
-    if done.device.type != "cpu":
-        return autoreset_batch(done, uv, st1, obs, scen=cfg.scen,
-                               w_base=cfg.der.w_base, n_ph=cfg.der.n_ph,
-                               y_lo=y_lo, count=slot)
-    if slot is not None:
-        slot += done.sum()
-    st2, obs2 = autoreset(done, _soft_reset(cfg, st1, uv), stepped)
-    if y_lo is not None:
-        y_lo = _where_done(done, torch.zeros_like(y_lo), y_lo)
-    return st2, obs2, y_lo
+    if done.device.type == "cpu":
+        if slot is not None:
+            slot += done.sum()
+        st2, obs2 = autoreset(done, _soft_reset(cfg, st1, uv), stepped)
+        if y_lo is not None:
+            y_lo = _where_done(done, torch.zeros_like(y_lo), y_lo)
+        return st2, obs2, y_lo
+    sched, rt, mppt = st1.sched, st1.rt, st1.mppt
+    out = autoreset_batch(dict(
+        done=done, uv=uv, s0=st1.s0, tc0=st1.tc0, y0=st1.y0, obs0=st1.obs0,
+        ppv0=st1.ppv0, w_base=cfg.der.w_base, solar=sched.solar,
+        grid=sched.grid, load=sched.load, y=st1.y, t_step=st1.t_step,
+        vdc_ref=st1.vdc_ref, q_ref=st1.q_ref, timers=rt.timers,
+        tripped=rt.tripped, ces=rt.ces, p_prev=mppt.p_prev,
+        direction=mppt.direction, obs=obs, y_lo=y_lo),
+        scenario_constants(cfg.scen), slot, n_ph=cfg.der.n_ph)
+    st2 = replace(
+        st1, sched=replace(sched, solar=out["solar"], grid=out["grid"],
+                           load=out["load"]),
+        y=out["y"], t_step=out["t_step"], vdc_ref=out["vdc_ref"],
+        q_ref=out["q_ref"],
+        rt=replace(rt, timers=out["timers"], tripped=out["tripped"],
+                   ces=out["ces"]),
+        mppt=replace(mppt, p_prev=out["p_prev"], direction=out["direction"]))
+    return st2, out["obs"], out.get("y_lo")
 
 
 def step_autoreset(cfg: EnvConfig, st: EnvState, action,

@@ -16,8 +16,10 @@ Every argument is float64: y [N, n_s], t / t0 [N], p_pack [29, N] and
 u_pack [15, N] (field-major, `ops.window.P_FIELDS` / `U_FIELDS` order, which
 is `pvderx_torch.native.P_ORDER` / `U_ORDER`). A launcher runs the plain
 version on tensors that live on the CPU and launches its kernel on tensors
-that live on the card, adding one to its ``launches``; any other device
-raises, and a failed build or launch raises. There is no fallback.
+that live on the card (`ops._build.launch`), adding one to its
+``launches``; any other device raises, and a failed build or launch raises.
+There is no fallback. Under `diag.debug.debug_mode` a float output that
+holds a NaN raises, as it does for every kernel of the port.
 
 The plain versions run the batch padded to `ops.window.CPU_LANES` envs on
 the CPU (`ops.window.pad_envs`), so an env's result does not depend on the
@@ -27,9 +29,10 @@ from __future__ import annotations
 
 import torch
 
+from pvderx_torch.ops import _build
 from pvderx_torch.ops.window import (
-    P_FIELDS, U_FIELDS, _check_single, _substep_constants, guard_launch,
-    pad_envs, rk4_window_batch_ref, unpack_struct)
+    P_FIELDS, U_FIELDS, _check_single, _substep_constants, pad_envs,
+    rk4_window_batch_ref, unpack_struct)
 from pvderx_torch.params import DERParams, Exog
 from pvderx_torch.physics import rhs_core
 from pvderx_torch.physics.xp import like
@@ -70,28 +73,6 @@ def _prepared(y, t, p_pack, u_pack, n_ph):
     return n, y.T, t, p, u, rhs_core.prep_invariants(p, u, xp, bdims=1), xp
 
 
-def _launch(entry: str, what: str, ins, outs, *scalars):
-    """Launch the C entry ``entry`` on the current stream: (*ins, *outs,
-    *scalars, stream). Every tensor must be contiguous and on one CUDA
-    device."""
-    dev = ins[0].device
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    for a in ins:
-        if not a.is_contiguous():
-            raise ValueError(f"the {what} kernel takes contiguous tensors")
-    guard_launch(what, *ins)
-    from pvderx_torch.ops import _build
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        err = getattr(lib, entry)(
-            *(a.data_ptr() for a in ins), *(o.data_ptr() for o in outs),
-            *scalars, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(
-            f"{what} kernel launch failed: {_build.error_string(err)}")
-
-
 # ---------------------------------------------------------------------------
 # N4: the right-hand side
 # ---------------------------------------------------------------------------
@@ -109,8 +90,8 @@ def rhs_batch(y, t, p_pack, u_pack, *, n_ph: int):
     if y.device.type == "cpu":
         return _rhs_ref(y, t, p_pack, u_pack, n_ph=n_ph)
     dy = torch.empty_like(y)
-    _launch("pvderx_native_rhs", "native rhs", (y, t, p_pack, u_pack), (dy,),
-            y.shape[0], n_ph)
+    _build.launch("pvderx_native_rhs", "native rhs", y, t, p_pack, u_pack, dy,
+                  y.shape[0], n_ph, check=(dy,))
     rhs_batch.launches += 1
     return dy
 
@@ -133,9 +114,9 @@ def rk4_batch(y, t0, p_pack, u_pack, *, n_ph: int, n_sub: int, dt: float):
     if n_sub < 1:
         raise ValueError(f"n_sub must be >= 1, got {n_sub}")
     out = torch.empty_like(y)
-    _launch("pvderx_native_rk4_window", "native RK4 window",
-            (y, t0, p_pack, u_pack), (out,), y.shape[0], n_ph, n_sub,
-            *_substep_constants(dt, n_sub))
+    _build.launch("pvderx_native_rk4_window", "native RK4 window", y, t0,
+                  p_pack, u_pack, out, y.shape[0], n_ph, n_sub,
+                  *_substep_constants(dt, n_sub), check=(out,))
     rk4_batch.launches += 1
     return out
 
@@ -229,9 +210,9 @@ def dp54_batch(y, t0, p_pack, u_pack, *, n_ph: int, dt: float,
     out = torch.empty_like(y)
     steps = torch.empty(y.shape[0], dtype=torch.int32, device=y.device)
     tries = torch.empty_like(steps)
-    _launch("pvderx_native_dp54_window", "native DP54 window",
-            (y, t0, p_pack, u_pack), (out, steps, tries), y.shape[0], n_ph,
-            float(dt), float(rtol), float(atol))
+    _build.launch("pvderx_native_dp54_window", "native DP54 window", y, t0,
+                  p_pack, u_pack, out, steps, tries, y.shape[0], n_ph,
+                  float(dt), float(rtol), float(atol), check=(out,))
     dp54_batch.launches += 1
     return out, steps, tries
 
@@ -295,9 +276,9 @@ def newton_batch(y, p_pack, u_pack, *, n_ph: int, iters: int = 50,
                                   tol=tol)
     out = torch.empty_like(y)
     res = torch.empty(y.shape[0], dtype=torch.int32, device=y.device)
-    _launch("pvderx_native_newton_steady", "native Newton",
-            (y, p_pack, u_pack), (out, res), y.shape[0], n_ph, int(iters),
-            float(tol))
+    _build.launch("pvderx_native_newton_steady", "native Newton", y, p_pack,
+                  u_pack, out, res, y.shape[0], n_ph, int(iters), float(tol),
+                  check=(out,))
     newton_batch.launches += 1
     return out, res
 

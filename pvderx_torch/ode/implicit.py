@@ -25,7 +25,7 @@ below the last bit. It replaces the reference's `jax.jacfwd`: torch's
 every operation that mixes a dual tensor with a plain one or a Python
 number goes through Python reference decompositions (torch 2.13 on a CPU
 host: 40.9 ms per Jacobian of one env's RHS, against 2.4 ms for the
-complex batch; `profile_torch_step.py --jacobian`), and the implicit step
+complex batch), and the implicit step
 runs 3 Jacobians per substep. The steady-state Newton of reset
 (`ode.newton`) takes its Jacobian the same way.
 

@@ -8,6 +8,10 @@ source's own flags, `SOURCE_FLAGS`, included), so an edit to a shared header
 builds a new library. It is loaded with ``ctypes``: the sources have a plain
 C interface and include no PyTorch header, so a build takes seconds. Nothing
 here runs at import time.
+
+`launch` is the one path from a kernel's wrapper to the library: it checks
+the tensors it hands over, passes each argument as its C type, and turns a
+failed launch into an exception.
 """
 from __future__ import annotations
 
@@ -18,6 +22,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
@@ -143,3 +149,83 @@ def load() -> ctypes.CDLL:
 
 def error_string(err: int) -> str:
     return load().pvderx_error_string(err).decode()
+
+
+def guard_launch(what: str, *inputs) -> None:
+    """Raise before a kernel launch whose output would drop autograd: grad is
+    enabled and an input requires grad."""
+    if torch.is_grad_enabled() and any(a.requires_grad for a in inputs):
+        raise RuntimeError(
+            f"the CUDA {what} kernel has no backward, and an input requires "
+            f"grad: differentiate through pvderx_torch.ode.rk4_window (the "
+            f"eager window), or launch under torch.no_grad()")
+
+
+def check_outputs(what: str, *outs) -> None:
+    """Under a dispatch mode that traps NaNs (``traps_nans``, as
+    `diag.debug.debug_mode`'s does), which cannot see inside a kernel:
+    raise if a kernel's output holds a NaN."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+
+    if (any(getattr(m, "traps_nans", False)
+            for m in _get_current_dispatch_mode_stack())
+            and any(bool(torch.isnan(o).any()) for o in outs)):
+        raise FloatingPointError(f"NaN in the output of the CUDA {what} kernel")
+
+
+def check_leaves(dev, leaves: dict) -> dict:
+    """{name: (tensor, dtype, shape)} -> {name: the tensor, contiguous}:
+    raise ValueError unless each tensor has its dtype and shape and lives
+    on ``dev``."""
+    out = {}
+    for name, (a, want, shape) in leaves.items():
+        if a.device != dev or a.dtype != want or tuple(a.shape) != shape:
+            raise ValueError(
+                f"{name} must be {want} {shape} on {dev}, got {a.dtype} "
+                f"{tuple(a.shape)} on {a.device}")
+        out[name] = a.contiguous()
+    return out
+
+
+def _c_arg(a):
+    """One argument as its C type (`launch`)."""
+    if isinstance(a, torch.Tensor):
+        return a.data_ptr()
+    if isinstance(a, tuple):
+        return (ctypes.c_void_p * len(a))(
+            *(None if t is None else t.data_ptr() for t in a))
+    if isinstance(a, list):
+        return (ctypes.c_double * len(a))(*a)
+    return a
+
+
+def launch(entry: str, what: str, *args, check=()) -> None:
+    """Launch the C entry ``entry`` (`ENTRIES`) on the current stream.
+
+    Each argument passes as its C type: a tensor as its data pointer; a
+    tuple of tensors and None as a C array of those pointers, None null; a
+    list of numbers as a C array of doubles; None as null; a number as it
+    is. The stream's handle goes last. Every tensor must be contiguous and
+    all on one CUDA device, and none may require grad while grad is enabled
+    (`guard_launch`). A nonzero code raises RuntimeError; then the float
+    outputs in ``check`` are held to `check_outputs`. ``what`` names the
+    kernel in the messages."""
+    tensors = [t for a in args for t in (a if isinstance(a, tuple) else (a,))
+               if isinstance(t, torch.Tensor)]
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"the {what} kernel takes tensors on one device, "
+                             f"got {t.device} beside {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"the {what} kernel takes contiguous tensors")
+    guard_launch(what, *tensors)
+    c_args = [_c_arg(a) for a in args]   # held until the call returns
+    with torch.cuda.device(dev):
+        err = getattr(load(), entry)(*c_args,
+                                     torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: {error_string(err)}")
+    check_outputs(what, *check)

@@ -10,19 +10,18 @@ of the done envs only. The plain version lives in `env.core`, which routes
 between the two (`env.core.restart_done`): this kernel for tensors on the
 card, the plain version for tensors on the CPU.
 
-Every output is a fresh tensor: no leaf of the input state, and nothing
-that the step returned (``info["vdc"]`` is a view of the stepped y,
-``info["tripped"]`` the stepped trip latch), is written.
+It takes and returns tensors, and `env.core.restart_done` builds the
+restarted state from them. Every output is a fresh tensor: no leaf of the
+input state, and nothing that the step returned (``info["vdc"]`` is a view
+of the stepped y, ``info["tripped"]`` the stepped trip latch), is written.
 """
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
 
-from pvderx_torch._struct import replace
-from pvderx_torch.ops.window import check_outputs, guard_launch
+from pvderx_torch.ops import _build
 
 # the order of the entry's pointer arrays (csrc/autoreset.cu: In, Out)
 IN_LEAVES = ("done", "uv", "s0", "tc0", "y0", "obs0", "ppv0", "w_base",
@@ -60,94 +59,53 @@ def autoreset_bytes(n: int, n_ph: int, dtype=torch.float32,
     return n * (1 + 2 * width * torch.finfo(dtype).bits // 8)
 
 
-def autoreset_batch(done, uv, state, obs, *, scen, w_base, n_ph: int,
-                    y_lo=None, count=None):
+def autoreset_batch(ins: dict, consts, count=None, *, n_ph: int):
     """Restart the done envs of a stepped batch in one kernel launch.
 
-    done: [N] bool; uv: [N, 14] draws; state: the stepped `EnvState`
-    (its ``s0``, ``tc0``, ``y0``, ``obs0``, ``ppv0`` the cached episode
-    start); obs: [N, 13] stepped; scen: the config's `ScenarioConfig`;
-    w_base: the config's 0-d ``der.w_base``; y_lo: the df32 tier's [N, n_s]
-    lo residual (zeroed where done), or None; count: a one-element int64
-    slot on the card into which the kernel adds the envs it restarted
+    ins: {name: tensor} of every leaf in `IN_LEAVES`: ``done`` [N] bool;
+    ``uv`` [N, 14] draws; the cached episode start (``s0``, ``tc0``,
+    ``y0``, ``obs0``, ``ppv0``); the config's 0-d ``w_base``; the stepped
+    leaves (the event tables, ``y``, ``t_step``, the setpoints, the
+    ride-through and MPPT state, ``obs``); ``y_lo``, the df32 tier's
+    [N, n_s] lo residual (zeroed where done), or None. consts:
+    `scenario_constants` of the config's scenario; count: a one-element
+    int64 slot on the card into which the kernel adds the envs it restarted
     (`diag.profiler.counter`), or None. Every tensor on one CUDA device,
-    float32 or float64 (t_step int32). Returns (state, obs, y_lo or None),
-    the state's other leaves those of ``state``; each launch adds one to
-    ``autoreset_batch.launches``.
+    float32 or float64 (t_step int32). Returns {name: tensor} of the leaves
+    in `OUT_LEAVES` (``y_lo`` only when given), each a fresh tensor; no
+    input is written. Each launch adds one to ``autoreset_batch.launches``.
     """
-    dev, dtype = state.y.device, state.y.dtype
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
+    y = ins["y"]
+    dtype = y.dtype
     if dtype not in _DTYPES:
         raise ValueError(f"the CUDA autoreset kernel takes float32 or "
                          f"float64, got {dtype}")
-    n, n_s = state.y.shape
+    n, n_s = y.shape
     if n_s != 6 * n_ph + 5:
         raise ValueError(f"y must be [N, {6 * n_ph + 5}], got "
-                         f"{tuple(state.y.shape)}")
-    sched, rt, mppt = state.sched, state.rt, state.mppt
-    leaves = {
-        "done": (done, torch.bool, (n,)), "uv": (uv, dtype, (n, 14)),
-        "s0": (state.s0, dtype, (n,)), "tc0": (state.tc0, dtype, (n,)),
-        "y0": (state.y0, dtype, (n, n_s)), "obs0": (state.obs0, dtype, (n, 13)),
-        "ppv0": (state.ppv0, dtype, (n,)), "w_base": (w_base, dtype, ()),
-        "solar": (sched.solar, dtype, (n, 4, 3)),
-        "grid": (sched.grid, dtype, (n, 4, 6)),
-        "load": (sched.load, dtype, (n, 2, 3)),
-        "y": (state.y, dtype, (n, n_s)),
-        "t_step": (state.t_step, torch.int32, (n,)),
-        "vdc_ref": (state.vdc_ref, dtype, (n,)),
-        "q_ref": (state.q_ref, dtype, (n,)),
-        "timers": (rt.timers, dtype, (n, 6)),
-        "tripped": (rt.tripped, dtype, (n,)), "ces": (rt.ces, dtype, (n,)),
-        "p_prev": (mppt.p_prev, dtype, (n,)),
-        "direction": (mppt.direction, dtype, (n,)),
-        "obs": (obs, dtype, (n, 13)),
+                         f"{tuple(y.shape)}")
+    want = {
+        "done": (torch.bool, (n,)), "uv": (dtype, (n, 14)),
+        "y0": (dtype, (n, n_s)), "obs0": (dtype, (n, 13)),
+        "w_base": (dtype, ()), "solar": (dtype, (n, 4, 3)),
+        "grid": (dtype, (n, 4, 6)), "load": (dtype, (n, 2, 3)),
+        "y": (dtype, (n, n_s)), "t_step": (torch.int32, (n,)),
+        "timers": (dtype, (n, 6)), "obs": (dtype, (n, 13)),
+        "y_lo": (dtype, (n, n_s)),
     }
-    if y_lo is not None:
-        leaves["y_lo"] = (y_lo, dtype, (n, n_s))
-    src = {}
-    for name, (a, want, shape) in leaves.items():
-        if a.device != dev or a.dtype != want or tuple(a.shape) != shape:
-            raise ValueError(
-                f"{name} must be {want} {shape} on {dev}, got {a.dtype} "
-                f"{tuple(a.shape)} on {a.device}")
-        src[name] = a.contiguous()
-    if count is not None and (count.device != dev
-                              or count.dtype != torch.int64):
-        raise ValueError("count must be an int64 slot on the state's device")
-    guard_launch("autoreset", *(src[k] for k in ("uv", "y", "y0", "obs",
-                                                  "obs0")))
+    src = _build.check_leaves(y.device, {
+        k: (ins[k], *want.get(k, (dtype, (n,)))) for k in IN_LEAVES
+        if k != "y_lo" or ins[k] is not None})
+    if count is not None and count.dtype != torch.int64:
+        raise ValueError(f"count must be an int64 slot, got {count.dtype}")
     out = {k: torch.empty_like(src[k]) for k in OUT_LEAVES if k in src}
-    from pvderx_torch.ops import _build
-    lib = _build.load()
-    ptr = lambda d, k: d[k].data_ptr() if k in d else None
-    ins = (ctypes.c_void_p * len(IN_LEAVES))(*(ptr(src, k) for k in IN_LEAVES))
-    outs = (ctypes.c_void_p * len(OUT_LEAVES))(*(ptr(out, k)
-                                                  for k in OUT_LEAVES))
-    consts = scenario_constants(scen)
-    consts = (ctypes.c_double * len(consts))(*consts)
-    with torch.cuda.device(dev):
-        err = lib.pvderx_autoreset(
-            ctypes.addressof(ins), ctypes.addressof(outs),
-            ctypes.addressof(consts),
-            None if count is None else count.data_ptr(), n, n_ph,
-            _DTYPES[dtype], torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(
-            f"autoreset kernel launch failed: {_build.error_string(err)}")
+    _build.launch("pvderx_autoreset", "autoreset",
+                  tuple(src.get(k) for k in IN_LEAVES),
+                  tuple(out.get(k) for k in OUT_LEAVES), list(consts), count,
+                  n, n_ph, _DTYPES[dtype],
+                  check=[v for k, v in out.items() if k != "t_step"])
     autoreset_batch.launches += 1
-    check_outputs("autoreset", *(v for k, v in out.items() if k != "t_step"))
-    st = replace(
-        state, sched=replace(sched, solar=out["solar"], grid=out["grid"],
-                             load=out["load"]),
-        y=out["y"], t_step=out["t_step"], vdc_ref=out["vdc_ref"],
-        q_ref=out["q_ref"],
-        rt=replace(rt, timers=out["timers"], tripped=out["tripped"],
-                   ces=out["ces"]),
-        mppt=replace(mppt, p_prev=out["p_prev"],
-                     direction=out["direction"]))
-    return st, out["obs"], out.get("y_lo")
+    return out
 
 
 autoreset_batch.launches = 0

@@ -30,9 +30,9 @@ import math
 import numpy as np
 import torch
 
+from pvderx_torch.ops import _build
 from pvderx_torch.ops.window import (
-    P_FIELDS, U_FIELDS, _check_single, check_outputs, guard_launch,
-    pad_envs, unpack_struct)
+    P_FIELDS, U_FIELDS, _check_single, pad_envs, unpack_struct)
 from pvderx_torch.params import DERParams, Exog
 from pvderx_torch.physics import rhs_core
 
@@ -441,27 +441,11 @@ def rk4_window_batch_df(y_hi, y_lo, t0, p_pack, u_pack, *, n_ph: int,
     if y_hi.device.type == "cpu":
         return rk4_window_batch_df_ref(y_hi, y_lo, t0, p_pack, u_pack,
                                        n_ph=n_ph, n_sub=n_sub, dt=dt)
-    if y_hi.device.type != "cuda":
-        raise ValueError(f"unsupported device {y_hi.device}")
-    for name, a in (("y_hi", y_hi), ("y_lo", y_lo), ("t0", t0),
-                    ("p_pack", p_pack), ("u_pack", u_pack)):
-        if not a.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    guard_launch("df32 window", y_hi, y_lo, t0, p_pack, u_pack)
-    from pvderx_torch.ops import _build
-    lib = _build.load()
     hi, lo = torch.empty_like(y_hi), torch.empty_like(y_lo)
-    h_hi, h_lo = split_h(dt, n_sub)
-    with torch.cuda.device(y_hi.device):
-        err = lib.pvderx_rk4_window_df(
-            y_hi.data_ptr(), y_lo.data_ptr(), t0.data_ptr(), p_pack.data_ptr(),
-            u_pack.data_ptr(), hi.data_ptr(), lo.data_ptr(), y_hi.shape[0],
-            n_ph, n_sub, h_hi, h_lo, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(
-            f"df32 window kernel launch failed: {_build.error_string(err)}")
+    _build.launch("pvderx_rk4_window_df", "df32 window", y_hi, y_lo, t0,
+                  p_pack, u_pack, hi, lo, y_hi.shape[0], n_ph, n_sub,
+                  *split_h(dt, n_sub), check=(hi, lo))
     rk4_window_batch_df.launches += 1
-    check_outputs("df32 window", hi, lo)
     return hi, lo
 
 

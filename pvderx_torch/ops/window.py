@@ -16,11 +16,12 @@ fallback between the two: a CUDA tensor launches the kernel or raises.
 
 The kernels have no backward. The plain versions are torch operations and
 differentiable; a launch with grad enabled and an input that requires grad
-raises (`guard_launch`) instead of returning an output that silently drops
-the window's share of the gradient: `pvderx_torch.ode.rk4_window` is the
-differentiable window. While `pvderx_torch.diag.debug.debug_mode` traps
-NaNs, which its dispatch mode cannot see inside a kernel, the launchers
-check their own outputs (`check_outputs`).
+raises (`_build.guard_launch`) instead of returning an output that silently
+drops the window's share of the gradient: `pvderx_torch.ode.rk4_window` is
+the differentiable window. While `pvderx_torch.diag.debug.debug_mode` traps
+NaNs, which its dispatch mode cannot see inside a kernel, every launch
+checks its outputs (`_build.check_outputs`). Every kernel of the port is
+launched through `_build.launch`.
 
 Both compute what the reference Pallas kernel computes: exog held constant
 over the window; the window-invariant `Prep` hoisted once; the grid phasor
@@ -47,6 +48,7 @@ import dataclasses
 import torch
 
 from pvderx_torch._struct import tree_map
+from pvderx_torch.ops import _build
 from pvderx_torch.params import DERParams, Exog
 from pvderx_torch.physics import fleet, rhs_core
 from pvderx_torch.physics.xp import like
@@ -168,55 +170,9 @@ def _check_fleet(y, t0, p_pack, u_pack, n_ph, m):
            u_pack=(u_pack, (len(U_FIELDS), n, m)))
 
 
-def guard_launch(what: str, *inputs) -> None:
-    """Raise before a kernel launch whose output would drop autograd: grad is
-    enabled and an input requires grad."""
-    if torch.is_grad_enabled() and any(a.requires_grad for a in inputs):
-        raise RuntimeError(
-            f"the CUDA {what} kernel has no backward, and an input requires "
-            f"grad: differentiate through pvderx_torch.ode.rk4_window (the "
-            f"eager window), or launch under torch.no_grad()")
-
-
-def check_outputs(what: str, *outs) -> None:
-    """Under a dispatch mode that traps NaNs (``traps_nans``, as
-    `diag.debug.debug_mode`'s does), which cannot see inside a kernel:
-    raise if a kernel's output holds a NaN."""
-    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
-
-    if (any(getattr(m, "traps_nans", False)
-            for m in _get_current_dispatch_mode_stack())
-            and any(bool(torch.isnan(o).any()) for o in outs)):
-        raise FloatingPointError(f"NaN in the output of the CUDA {what} kernel")
-
-
-def _launch(entry: str, what: str, y, t0, p_pack, u_pack, *dims, n_sub: int,
-            dt: float):
-    """Launch the C entry ``entry`` of the kernels' library on the current
-    stream: (y, t0, p, u, out, *dims, n_sub, h, h/2, h/6, stream). The
-    arguments must be float32, contiguous, on one CUDA device."""
-    if y.device.type != "cuda":
-        raise ValueError(f"unsupported device {y.device}")
+def _float32(what: str, y) -> None:
     if y.dtype != torch.float32:
         raise ValueError(f"the CUDA {what} kernel takes float32, got {y.dtype}")
-    for name, a in (("y", y), ("t0", t0), ("p_pack", p_pack),
-                    ("u_pack", u_pack)):
-        if not a.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    guard_launch(what, y, t0, p_pack, u_pack)
-    from pvderx_torch.ops import _build
-    lib = _build.load()
-    out = torch.empty_like(y)
-    h, hh, h6 = _substep_constants(dt, n_sub)
-    with torch.cuda.device(y.device):
-        err = getattr(lib, entry)(
-            y.data_ptr(), t0.data_ptr(), p_pack.data_ptr(), u_pack.data_ptr(),
-            out.data_ptr(), *dims, n_sub, h, hh, h6,
-            torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(
-            f"{what} kernel launch failed: {_build.error_string(err)}")
-    return out
 
 
 def rk4_window_batch_ref(y, t0, p_pack, u_pack, *, n_ph: int, n_sub: int,
@@ -267,10 +223,12 @@ def rk4_window_batch(y, t0, p_pack, u_pack, *, n_ph: int, n_sub: int,
     if y.device.type == "cpu":
         return rk4_window_batch_ref(y, t0, p_pack, u_pack, n_ph=n_ph,
                                     n_sub=n_sub, dt=dt)
-    out = _launch("pvderx_rk4_window", "window", y, t0, p_pack, u_pack,
-                  y.shape[0], n_ph, n_sub=n_sub, dt=dt)
+    _float32("window", y)
+    out = torch.empty_like(y)
+    _build.launch("pvderx_rk4_window", "window", y, t0, p_pack, u_pack, out,
+                  y.shape[0], n_ph, n_sub, *_substep_constants(dt, n_sub),
+                  check=(out,))
     rk4_window_batch.launches += 1
-    check_outputs("window", out)
     return out
 
 
@@ -359,13 +317,15 @@ def rk4_fleet_window_batch(y, t0, p_pack, u_pack, *, n_ph: int, m: int,
     if y.device.type == "cpu":
         return rk4_fleet_window_batch_ref(y, t0, p_pack, u_pack, n_ph=n_ph,
                                           m=m, n_sub=n_sub, dt=dt)
-    if y.device.type == "cuda" and m > MAX_UNITS_CUDA:
+    if m > MAX_UNITS_CUDA:
         raise ValueError(f"the CUDA fleet kernel takes M <= {MAX_UNITS_CUDA} "
                          f"units per env, got {m}")
-    out = _launch("pvderx_rk4_fleet_window", "fleet window", y, t0, p_pack,
-                  u_pack, y.shape[0], m, n_ph, n_sub=n_sub, dt=dt)
+    _float32("fleet window", y)
+    out = torch.empty_like(y)
+    _build.launch("pvderx_rk4_fleet_window", "fleet window", y, t0, p_pack,
+                  u_pack, out, y.shape[0], m, n_ph, n_sub,
+                  *_substep_constants(dt, n_sub), check=(out,))
     rk4_fleet_window_batch.launches += 1
-    check_outputs("fleet window", out)
     return out
 
 

@@ -106,6 +106,18 @@ def test_torch_step_autoreset_leaves_inputs_and_info_untouched(path,
     assert not torch.equal(info["vdc"][done], st2.y[done, 6])
 
 
+def _kernel_ins(cfg, done, st1, obs, uv, y_lo=None):
+    """`autoreset_batch`'s leaves, by name, for a stepped batch."""
+    sched, rt, mppt = st1.sched, st1.rt, st1.mppt
+    return dict(
+        done=done, uv=uv, s0=st1.s0, tc0=st1.tc0, y0=st1.y0, obs0=st1.obs0,
+        ppv0=st1.ppv0, w_base=cfg.der.w_base, solar=sched.solar,
+        grid=sched.grid, load=sched.load, y=st1.y, t_step=st1.t_step,
+        vdc_ref=st1.vdc_ref, q_ref=st1.q_ref, timers=rt.timers,
+        tripped=rt.tripped, ces=rt.ces, p_prev=mppt.p_prev,
+        direction=mppt.direction, obs=obs, y_lo=y_lo)
+
+
 def test_torch_restart_done_takes_the_plain_path_on_the_cpu(monkeypatch):
     cfg, st, gen = _near_horizon("single")
     st1, obs, _, done, _ = core.step(cfg, st, torch.zeros(8, dtype=torch.int64))
@@ -124,30 +136,48 @@ def test_torch_restart_done_takes_the_plain_path_on_the_cpu(monkeypatch):
     assert ops_autoreset.autoreset_batch.launches == launches
     with pytest.raises(ValueError, match="unsupported device cpu"):
         ops_autoreset.autoreset_batch(
-            done, uv, st1, obs, scen=cfg.scen, w_base=cfg.der.w_base,
-            n_ph=1)
+            _kernel_ins(cfg, done, st1, obs, uv),
+            ops_autoreset.scenario_constants(cfg.scen), n_ph=1)
 
 
-def test_torch_restart_done_sends_other_devices_to_the_kernel(monkeypatch):
+@pytest.mark.parametrize("lo", [False, True])
+def test_torch_restart_done_sends_other_devices_to_the_kernel(lo,
+                                                              monkeypatch):
     cfg, st, gen = _near_horizon("single")
     st1, obs, _, done, _ = core.step(cfg, st, torch.zeros(8, dtype=torch.int64))
     uv = core.event_draws(cfg, 8, gen)
     meta = lambda t: tree_map(lambda x: x.to("meta"), t)
-    seen = {}
+    seen = []
 
-    def fake(*args, **kw):
-        seen.update(kw, args=args)
-        return "kernel"
+    def fake(ins, consts, count=None, **kw):
+        out = {k: torch.empty_like(ins[k]) for k in ops_autoreset.OUT_LEAVES
+               if ins[k] is not None}
+        seen.append((ins, consts, count, kw, out))
+        return out
 
     monkeypatch.setattr(core, "autoreset_batch", fake)
-    y_lo = torch.zeros(8, 11, device="meta")
-    assert core.restart_done(cfg, meta(done), (meta(st1), meta(obs)),
-                             meta(uv), y_lo) == "kernel"
-    assert seen["scen"] is cfg.scen and seen["w_base"] is cfg.der.w_base
-    assert seen["n_ph"] == 1 and seen["y_lo"] is y_lo
-    assert seen["count"] is None
-    assert [a.device.type for a in _leaves(seen["args"])] == ["meta"] * len(
-        _leaves(seen["args"]))
+    y_lo = torch.zeros(8, 11, device="meta") if lo else None
+    args = meta(done), meta(st1), meta(obs), meta(uv)
+    st2, obs2, y_lo2 = core.restart_done(cfg, args[0], args[1:3], args[3],
+                                         y_lo)
+    (ins, consts, count, kw, out), = seen
+    want = _kernel_ins(cfg, *args[:3], args[3], y_lo)
+    assert list(ins) == list(ops_autoreset.IN_LEAVES) == list(want)
+    assert all(ins[k] is want[k] for k in want)
+    assert consts == ops_autoreset.scenario_constants(cfg.scen)
+    assert count is None and kw == {"n_ph": 1}
+    # the restarted state is assembled from the kernel's leaves
+    got = dict(solar=st2.sched.solar, grid=st2.sched.grid,
+               load=st2.sched.load, y=st2.y, t_step=st2.t_step,
+               vdc_ref=st2.vdc_ref, q_ref=st2.q_ref, timers=st2.rt.timers,
+               tripped=st2.rt.tripped, ces=st2.rt.ces,
+               p_prev=st2.mppt.p_prev, direction=st2.mppt.direction,
+               obs=obs2, y_lo=y_lo2)
+    assert set(got) == set(ops_autoreset.OUT_LEAVES)
+    assert all(v is out.get(k) for k, v in got.items())
+    assert (y_lo2 is None) == (not lo)
+    for k in ("der", "y0", "s0", "tc0", "obs0", "ppv0", "init_res"):
+        assert getattr(st2, k) is getattr(args[1], k)
 
 
 def _const_names():

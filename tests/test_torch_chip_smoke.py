@@ -9,8 +9,7 @@
   substep loop (the largest backward branch) and the stage loop inside it,
   and estimates the instructions one substep runs; `sass_per_substep` and
   `sass_issue_floor_ms` turn that into the SASS-issue floor, and
-  `trace_launch` reads a launch's warps from a profiler trace;
-  `_launch_and_kernel_events` pairs a trace's launches with its kernels.
+  `trace_launch` reads a launch's warps from a profiler trace.
 - A phase that raises ends `chip_smoke.main` with one ``[failed]`` line
   naming it and exit code 1; a subprocess past its timeout is stopped and
   named with its phase and the end of its stderr (`wait_for`).
@@ -391,24 +390,6 @@ def test_torch_chip_smoke_grad_and_examples_phases_run_on_the_cpu():
         ("gain_tuning", ["--iters", "1", "--windows", "1", "--n-sub", "40"],
          {"k1": 0, "k2": 0})))
     assert all(v["rc"] == 0 for v in ex.values()) and len(ex) == 4
-
-
-def test_torch_chip_smoke_trace_edges_pairs_launches_with_kernels():
-    """`profile_torch_step._launch_and_kernel_events` pairs each runtime
-    launch with its kernel by correlation id, so a dropped kernel shows as
-    a launch without one."""
-    from profile_torch_step import _launch_and_kernel_events
-
-    ev = lambda cat, name, c: {"cat": cat, "name": name, "ts": c,
-                               "args": {"correlation": c}}
-    events = [ev("cuda_runtime", "cudaLaunchKernel", 1),
-              ev("cuda_runtime", "cudaLaunchKernel", 2),
-              ev("cuda_runtime", "cudaMemcpyAsync", 3),
-              ev("kernel", "window_kernel<1>", 2),
-              {"cat": "cpu_op", "name": "aten::add", "ts": 0, "args": {}}]
-    launches, kernels = _launch_and_kernel_events(events)
-    assert sorted(launches) == [1, 2] and sorted(kernels) == [2]
-    assert [c for c in launches if c not in kernels] == [1]
 
 
 def test_torch_chip_smoke_prefetched_truth_is_the_inline_one():

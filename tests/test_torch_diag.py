@@ -344,8 +344,8 @@ def test_torch_debug_mode_restores_on_exit():
 # ---------------------------------------------------------------------------
 def test_torch_grad_guard_raises_where_a_kernel_would_drop_the_gradient():
     from chip_smoke import window_inputs
-    from pvderx_torch.ops.window import (
-        P_FIELDS, check_outputs, guard_launch, rk4_window_batch)
+    from pvderx_torch.ops._build import check_outputs, guard_launch
+    from pvderx_torch.ops.window import P_FIELDS, rk4_window_batch
 
     n_ph, y, t0, pp, uu = window_inputs("10", 3, 0, "cpu")
     pp.requires_grad_(True)

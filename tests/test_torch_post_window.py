@@ -51,6 +51,15 @@ def _cfg(preset, dtype, anomaly=False, rt=True):
                                 anomaly_detect=anomaly, rt_enabled=rt)
 
 
+def _kernel_args(cfg, st, exog, mppt, t, y1, flag, pk, uk):
+    """`post_window_batch`'s arguments for one step's inputs."""
+    anom = cfg.anomaly_detect
+    return ((y1, t, st.t_step, pk, uk, st.rt.timers, st.rt.tripped,
+             cfg.rt.t_lim, cfg.rt.enable, flag if anom else None,
+             st.s0 if anom else None, ops_post_window.step_constants(cfg)),
+            dict(n_ph=cfg.der.n_ph, horizon=cfg.horizon))
+
+
 def test_torch_post_window_cpu_takes_the_plain_version(monkeypatch):
     st, args, pk, uk = _case()
     cfg = _cfg("10", torch.float32)
@@ -64,30 +73,47 @@ def test_torch_post_window_cpu_takes_the_plain_version(monkeypatch):
     want = core._post_window_plain(cfg, st, *args)
     assert not cs.bitwise_differences(got, want)
     assert ops_post_window.post_window_batch.launches == launches
+    pos, kw = _kernel_args(cfg, st, *args, pk, uk)
     with pytest.raises(ValueError, match="unsupported device cpu"):
-        ops_post_window.post_window_batch(cfg, st, *args, p_pack=pk,
-                                          u_pack=uk)
+        ops_post_window.post_window_batch(*pos, **kw)
 
 
-def test_torch_post_window_sends_other_devices_to_the_kernel(monkeypatch):
+@pytest.mark.parametrize("anomaly", [False, True])
+def test_torch_post_window_sends_other_devices_to_the_kernel(anomaly,
+                                                            monkeypatch):
     st, (exog, mppt, t, y1, flag), pk, uk = _case()
-    cfg = _cfg("10", torch.float32)
+    cfg = _cfg("10", torch.float32, anomaly=anomaly)
     meta = lambda x: tree_map(lambda a: a.to("meta"), x)
-    seen = {}
+    want = core._post_window_plain(cfg, st, exog, mppt, t, y1, flag)
+    leaves = {k.removeprefix("info."): meta(v)
+              for k, v in cs._post_window_leaves(want).items()}
+    seen = []
 
     def fake(*args, **kw):
-        seen.update(kw, args=args)
-        return "kernel"
+        seen.append((args, kw))
+        return leaves
 
     monkeypatch.setattr(core, "post_window_batch", fake)
     args = (meta(st), meta(exog), meta(mppt), meta(t), meta(y1), meta(flag))
-    assert core._post_window(cfg, *args, meta(pk), meta(uk)) == "kernel"
-    assert seen["args"][0] is cfg
-    assert all(a is b for a, b in zip(seen["args"][1:], args, strict=True))
-    assert seen["p_pack"].device.type == "meta"
-    assert tuple(seen["u_pack"].shape) == (len(U_FIELDS), 8)
-    assert core._post_window(cfg, *args) == "kernel"
-    assert seen["p_pack"] is None and seen["u_pack"] is None
+    packs = meta(pk), meta(uk)
+    st1, obs, reward, done, info = core._post_window(cfg, *args, *packs)
+    (got, kw), = seen
+    pos, want_kw = _kernel_args(cfg, *args, *packs)
+    assert kw == want_kw and got[-1] == pos[-1]
+    assert all(a is b for a, b in zip(got[:-1], pos[:-1], strict=True))
+    assert (got[9] is None) == (got[10] is None) == (not anomaly)
+    # the step is assembled from the kernel's leaves, with the aliases
+    assert st1.y is args[4] and info["tripped"] is st1.rt.tripped
+    assert _view_of(info["vdc"], args[4])
+    assert st1.vdc_ref is args[1].vdc_ref and st1.mppt is args[2]
+    assert obs is leaves["obs"] and reward is leaves["reward"]
+    assert done is leaves["done"] and st1.t_step is leaves["t_step"]
+    assert st1.rt.timers is leaves["timers"] and st1.rt.ces is leaves["ces"]
+    assert all(info[k] is leaves[k] for k in info if k not in ("vdc",
+                                                               "tripped"))
+    core._post_window(cfg, *args)                   # packed here when None
+    assert [tuple(a.shape) for a in seen[1][0][3:5]] == [
+        (len(P_FIELDS), 8), (len(U_FIELDS), 8)]
 
 
 @pytest.mark.parametrize("path", ["single", "df"])
