@@ -7,9 +7,9 @@ Phases, one line each (a failing phase raises, so the script exits non-zero):
 
 1. device   — the card's name and power limit (nvidia-smi).
 2. build    — nvcc builds the kernels (K1-K3, N1-N4, the autoreset, the
-              post-window glue) from pvderx_torch/ops/csrc/ (one nvcc per
-              source, in parallel) and reports each kernel's registers and
-              spills.
+              pre- and post-window glue) from pvderx_torch/ops/csrc/ (one
+              nvcc per source, in parallel) and reports each kernel's
+              registers and spills.
 3. kernel   — the CUDA window kernel (K1) against its plain torch version on the
               same seeded inputs (presets 10 and 50, const-Vdc, unbalanced
               3-phase, disconnect/cessation, a ragged N): max abs error
@@ -247,6 +247,26 @@ Phases, one line each (a failing phase raises, so the script exits non-zero):
               bound, the plain version's ms and the kernel's registers and
               spills. Phases 5, 13 and 21 require one post-window launch
               per env step.
+
+39. pre_window — the env step's pre-window kernel (`ops.pre_window`,
+              csrc/pre_window.cu, through `env.core._pre_window`) against
+              the plain version (`_pre_window_plain`) on states pushed
+              across every branch it tests (the setpoints into both
+              clamps, steps at exactly an event row's time, every Volt-VAR
+              segment, both P&O directions, a -0 in an active table row
+              and a NaN in an inactive one): presets 10 and 50, float32
+              and float64, discrete actions, the anomaly flag, continuous
+              actions, Volt-VAR, MPPT and both, a ragged N = 37 and 32768
+              envs; t, the 15 exog rows, the MPPT state and the flag bit
+              for bit, but the Volt-VAR setpoint at preset 50 within 1e-6
+              of its largest magnitude (torch's reduction orders the
+              three-phase mean it reads); the exog the kernel's pack's
+              rows, one launch each, no input changed. Then ms per launch
+              at 2097152 envs (device time: the calls queue behind a
+              device sleep) beside its bytes bound, the plain version's ms
+              (with the exog pack) and the kernel's registers and spills.
+              Phases 5, 13 and 21 require one pre-window launch per env
+              step.
 
 Every line carries `at_s`, the seconds since the script started. The
 float64 LSODA truths of phases 4, 8, 12, 19, 22 and 36 run in worker
@@ -547,12 +567,14 @@ def _zero_counts():
 
     from pvderx_torch.ops.autoreset import autoreset_batch
     from pvderx_torch.ops.post_window import post_window_batch
+    from pvderx_torch.ops.pre_window import pre_window_batch
 
     rk4_window_batch.launches = 0
     rk4_fleet_window_batch.launches = 0
     rk4_window_batch_df.launches = 0
     autoreset_batch.launches = 0
     post_window_batch.launches = 0
+    pre_window_batch.launches = 0
 
 
 def _drive(roll, state, obs, warm, chunk):
@@ -585,8 +607,8 @@ def _drive(roll, state, obs, warm, chunk):
 
 def _check_drive(name, out, launches, cuda, **glue):
     """A drive's checks; ``glue``: the launches of the env step's glue
-    kernels by name (``autoreset``, ``post_window``), each of which must
-    equal the steps as the window kernel's do."""
+    kernels by name (``autoreset``, ``post_window``, ``pre_window``), each
+    of which must equal the steps as the window kernel's do."""
     if launches != out["steps"] and cuda:
         raise AssertionError(
             f"{name}: kernel launches {launches} != steps {out['steps']}")
@@ -619,6 +641,7 @@ def run_main(device, card, n_envs=N_ENVS, n_sub=N_SUB, warm=WARM_STEPS,
     from pvderx_torch.env import make_batch_fns, make_env_config, rollout
     from pvderx_torch.ops.autoreset import autoreset_batch
     from pvderx_torch.ops.post_window import post_window_batch
+    from pvderx_torch.ops.pre_window import pre_window_batch
     from pvderx_torch.ops.window import (
         P_FIELDS, U_FIELDS, pack_struct, rk4_window_batch,
         rk4_window_batch_ref)
@@ -642,11 +665,12 @@ def run_main(device, card, n_envs=N_ENVS, n_sub=N_SUB, warm=WARM_STEPS,
     launches = rk4_window_batch.launches
     ar_launches = autoreset_batch.launches
     pw_launches = post_window_batch.launches
+    pre_launches = pre_window_batch.launches
     peak_mib = (torch.cuda.max_memory_allocated(device) / 2 ** 20
                 if cuda else None)
 
     # the kernel alone at the main path's shapes, beside its plain version
-    t_win, exog, _, _ = core._pre_window(
+    t_win, exog, *_ = core._pre_window(
         cfg, state, torch.zeros(n_envs, dtype=torch.int64, device=device))
     args = (state.y, t_win, pack_struct(state.der, P_FIELDS),
             pack_struct(exog, U_FIELDS))
@@ -668,15 +692,16 @@ def run_main(device, card, n_envs=N_ENVS, n_sub=N_SUB, warm=WARM_STEPS,
           plain_window_ms=plain_ms, preset50_ms_per_launch=k1_50_ms,
           peak_mem_mib=peak_mib,
           launches=launches, autoreset_launches=ar_launches,
-          post_window_launches=pw_launches,
+          post_window_launches=pw_launches, pre_window_launches=pre_launches,
           steps=out["steps"], dones=out["dones"],
           rew_sum=out["rew_sum"], finite=out["finite"])
     phase("linear", card=card, two_chunks_over_one=out["ratio"],
           band=[1.5, 2.7])
     _check_drive("main", out, launches, cuda, autoreset=ar_launches,
-                 post_window=pw_launches)
+                 post_window=pw_launches, pre_window=pre_launches)
     return dict(launches=launches, autoreset_launches=ar_launches,
-                post_window_launches=pw_launches, kernel_ms=kernel_ms,
+                post_window_launches=pw_launches,
+                pre_window_launches=pre_launches, kernel_ms=kernel_ms,
                 plain_ms=plain_ms, preset50_ms=k1_50_ms,
                 env_steps_per_s=n_envs * chunk / out["chunk_s"])
 
@@ -1038,6 +1063,7 @@ def run_df_main(device, card, n_envs=N_ENVS, n_sub=N_SUB, warm=WARM_STEPS,
     from pvderx_torch.ops.autoreset import autoreset_batch
     from pvderx_torch.ops.dualfloat import rk4_window_batch_df
     from pvderx_torch.ops.post_window import post_window_batch
+    from pvderx_torch.ops.pre_window import pre_window_batch
     from pvderx_torch.ops.window import (
         P_FIELDS, U_FIELDS, pack_struct, rk4_window_batch)
 
@@ -1062,13 +1088,14 @@ def run_df_main(device, card, n_envs=N_ENVS, n_sub=N_SUB, warm=WARM_STEPS,
     launches = rk4_window_batch_df.launches
     ar_launches = autoreset_batch.launches
     pw_launches = post_window_batch.launches
+    pre_launches = pre_window_batch.launches
     peak_mib = (torch.cuda.max_memory_allocated(device) / 2 ** 20
                 if cuda else None)
     state, y_lo = carry
     lo_max = float(y_lo.abs().max())
 
     # K3 and K1 on hi alone at the main path's shapes and n_sub
-    t_win, exog, _, _ = core._pre_window(
+    t_win, exog, *_ = core._pre_window(
         cfg, state, torch.zeros(n_envs, dtype=torch.int64, device=device))
     pk, uk = pack_struct(state.der, P_FIELDS), pack_struct(exog, U_FIELDS)
     kw = dict(n_ph=cfg.der.n_ph, n_sub=n_sub, dt=cfg.dt_ctrl)
@@ -1099,13 +1126,13 @@ def run_df_main(device, card, n_envs=N_ENVS, n_sub=N_SUB, warm=WARM_STEPS,
           k3_preset50_bound_ms=bound50["bound_ms"],
           peak_mem_mib=peak_mib,
           launches=launches, autoreset_launches=ar_launches,
-          post_window_launches=pw_launches,
+          post_window_launches=pw_launches, pre_window_launches=pre_launches,
           steps=out["steps"], dones=out["dones"], rew_sum=out["rew_sum"],
           finite=out["finite"], max_abs_y_lo=lo_max)
     phase("df_linear", card=card, two_chunks_over_one=out["ratio"],
           band=[1.5, 2.7])
     _check_drive("df_main", out, launches, cuda, autoreset=ar_launches,
-                 post_window=pw_launches)
+                 post_window=pw_launches, pre_window=pre_launches)
     if not lo_max > 0.0:
         raise AssertionError("df_main: y_lo is zero everywhere")
     return dict(launches=launches, kernel_ms=kernel_ms, plain_ms=plain_ms,
@@ -1552,6 +1579,7 @@ def run_gym(device, card, main_rate=None, n_envs=N_ENVS, n_sub=N_SUB,
     from pvderx_torch.env import gym_adapter as ga
     from pvderx_torch.ops.autoreset import autoreset_batch
     from pvderx_torch.ops.post_window import post_window_batch
+    from pvderx_torch.ops.pre_window import pre_window_batch
     from pvderx_torch.ops.window import rk4_fleet_window_batch, rk4_window_batch
 
     cuda = torch.device(device).type == "cuda"
@@ -1575,13 +1603,14 @@ def run_gym(device, card, main_rate=None, n_envs=N_ENVS, n_sub=N_SUB,
     launches = rk4_window_batch.launches
     ar_launches = autoreset_batch.launches
     pw_launches = post_window_batch.launches
+    pre_launches = pre_window_batch.launches
     rate = n_envs * vec_steps / secs
     out = dict(gymnasium=ga._HAS_GYM, vector=dict(
         n_envs=n_envs, n_sub=n_sub, steps=vec_steps, reset_s=reset_s,
         step_ms=1e3 * secs / vec_steps, env_steps_per_s=rate,
         main_env_steps_per_s=main_rate, launches=launches,
         autoreset_launches=ar_launches, post_window_launches=pw_launches,
-        dones=dones))
+        pre_window_launches=pre_launches, dones=dones))
     phase("gym", card=card, adapter="PVDERVectorEnv", gymnasium=ga._HAS_GYM,
           **out["vector"])
     if not finite:
@@ -1597,6 +1626,9 @@ def run_gym(device, card, main_rate=None, n_envs=N_ENVS, n_sub=N_SUB,
     if cuda and pw_launches != vec_steps:
         raise AssertionError(f"gym vector: post-window launches "
                              f"{pw_launches} != steps {vec_steps}")
+    if cuda and pre_launches != vec_steps:
+        raise AssertionError(f"gym vector: pre-window launches "
+                             f"{pre_launches} != steps {vec_steps}")
 
     single_acts = [k % 5 for k in range(steps)]
     ms, n = _drive_adapter(ga.PVDEREnv("10", n_sub=n_sub, device=device),
@@ -1878,7 +1910,7 @@ def run_diag_debug(device, card, n_envs=N_ENVS, n_sub=N_SUB, guard_n=64):
     caught = step(dataclasses.replace(state, y=y), a)[0].get()
     with debug_mode():
         core.step(cfg, state, a)                    # clean: no trap
-    t_win, exog, _, _ = core._pre_window(cfg, state, a)
+    t_win, exog, *_ = core._pre_window(cfg, state, a)
     args = (y, t_win, pack_struct(state.der, P_FIELDS),
             pack_struct(exog, U_FIELDS))
     trapped = None
@@ -3609,7 +3641,7 @@ def _post_window_case(preset, dtype, n, device, seed):
     st = replace(st, t_step=t_step, rt=rt)
     act = torch.randint(0, core.N_ACTIONS_ANOM, (n,), generator=gen,
                         device=device)
-    t, exog, mppt, flag = core._pre_window(cfg, st, act)
+    t, exog, mppt, flag, _ = core._pre_window(cfg, st, act)
     exog = replace(
         exog, v_g=0.3 + 1.05 * r(n),
         dw_g=torch.where(some(0.25), 0.04 * r(n) - 0.02, zero),
@@ -3772,6 +3804,194 @@ def check_post_window(device, presets=POST_WINDOW_PRESETS,
                 bound_ms=bytes_ms, n=timed_n, ptxas=regs)
 
 
+# Phase 39: the pre-window kernel's cases, (preset, dtype, N) x the config's
+# switches, and the batch at which it is timed (the benchmark cell's)
+PRE_WINDOW_PRESETS = ("10", "50")
+PRE_WINDOW_DTYPES = (torch.float32, torch.float64)
+PRE_WINDOW_SIZES = (37, N_ENVS)
+PRE_WINDOW_MODES = (
+    ("discrete", {}), ("anomaly", dict(anomaly_detect=True)),
+    ("continuous", dict(continuous=True)),
+    ("voltvar", dict(voltvar_enable=True)), ("mppt", dict(mppt_enable=True)),
+    ("voltvar_mppt", dict(voltvar_enable=True, mppt_enable=True)))
+# The Volt-VAR setpoint at three phases, within this share of its largest
+# magnitude: torch's reduction, not the kernel, sets the order of the
+# three-phase mean of the PCC voltage it reads
+PRE_WINDOW_TOL = 1e-6
+PRE_WINDOW_TIMED_ENVS = 2097152
+
+
+def _pre_window_case(preset, dtype, n, device, seed):
+    """(state, discrete actions 0..5, continuous actions [N, 2], p_pack): a
+    reset of ``n`` envs pushed across every branch the pre-window tests:
+    the setpoints over and past their bounds (so that the actions drive
+    them into both clamps), a fifth tripped and a fifth in cessation, the
+    step count over the whole horizon with a quarter of the envs each at
+    exactly the time of a solar, grid or load event row, the grid voltage
+    over 0.85-1.15 pu in the first three grid rows (every Volt-VAR
+    segment), a -0 load in a fifth of the baseline rows and a NaN in a
+    fifth of the solar tables' padding rows (neither may show), the MPPT
+    state around the reset's PV power (both P&O directions), y the
+    reset's with noise; continuous actions over +-1.5."""
+    from pvderx_torch._struct import replace
+    from pvderx_torch.env import core, make_env_config
+    from pvderx_torch.ops.window import P_FIELDS, pack_struct
+    from pvderx_torch.scenario.mppt_voltvar import MPPTState
+
+    cfg = make_env_config(preset, dtype=dtype, device=device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    r = lambda *shape: torch.rand(shape, generator=gen, dtype=dtype,
+                                  device=device)
+    some = lambda share: r(n) < share
+    st, _ = core.reset(cfg, n, gen)
+    t_step = torch.randint(0, cfg.horizon, (n,), generator=gen,
+                           device=device, dtype=torch.int32)
+    t = t_step.to(dtype) * cfg.dt_ctrl
+    solar, grid, load = (x.clone() for x in (st.sched.solar, st.sched.grid,
+                                             st.sched.load))
+    which = torch.randint(0, 4, (n,), generator=gen, device=device)
+    solar[:, 1, 0] = torch.where(which == 1, t, solar[:, 1, 0])
+    solar[:, 2, 0] = torch.where(which == 1, t + 1.0, solar[:, 2, 0])
+    grid[:, 1, 0] = torch.where(which == 2, t, grid[:, 1, 0])
+    grid[:, 2, 0] = torch.where(which == 2, t + 0.5, grid[:, 2, 0])
+    load[:, 1, 0] = torch.where(which == 3, t, load[:, 1, 0])
+    grid[:, :3, 1] = 0.85 + 0.3 * r(n, 3)
+    load[:, 0, 1] = torch.where(some(0.2), -0.0, load[:, 0, 1])
+    solar[:, 3, 1] = torch.where(some(0.2), float("nan"), solar[:, 3, 1])
+    rt = replace(st.rt, tripped=some(0.2).to(dtype),
+                 ces=some(0.2).to(dtype))
+    one = torch.ones(n, dtype=dtype, device=device)
+    st = replace(
+        st, y=st.y + 1e-3 * r(*st.y.shape), t_step=t_step,
+        q_ref=1.04 * r(n) - 0.52, vdc_ref=0.68 + 0.54 * r(n), rt=rt,
+        sched=replace(st.sched, solar=solar, grid=grid, load=load),
+        mppt=MPPTState(p_prev=st.ppv0 * (0.995 + 0.01 * r(n)),
+                       direction=torch.where(some(0.5), one, -one)))
+    act = torch.randint(0, core.N_ACTIONS_ANOM, (n,), generator=gen,
+                        device=device)
+    return st, act, 3.0 * r(n, 2) - 1.5, pack_struct(st.der, P_FIELDS)
+
+
+def _pre_window_leaves(t, exog, mppt, flag, anomaly) -> dict:
+    """The leaves a pre-window computes, by name (the flag with the anomaly
+    reward alone: without it the kernel's route makes none)."""
+    import dataclasses
+
+    out = {"t": t, **{f"exog.{f.name}": getattr(exog, f.name)
+                      for f in dataclasses.fields(exog)},
+           "mppt.p_prev": mppt.p_prev, "mppt.direction": mppt.direction}
+    if anomaly:
+        out["flag"] = flag
+    return out
+
+
+def check_pre_window(device, presets=PRE_WINDOW_PRESETS,
+                     dtypes=PRE_WINDOW_DTYPES, sizes=PRE_WINDOW_SIZES,
+                     timed_n=PRE_WINDOW_TIMED_ENVS):
+    """Phase 39: `env.core._pre_window` (the pre-window kernel on the card)
+    against the plain version `_pre_window_plain` on every case, each leaf
+    bit for bit (t, the 15 exog rows, the MPPT state, the anomaly flag),
+    but the Volt-VAR setpoint at three phases, within `PRE_WINDOW_TOL`;
+    on the card the exog views of the kernel's [15, N] pack, inputs
+    untouched, one launch a call. Then ms per launch at ``timed_n`` envs
+    (the last size's case repeated; None: not timed) beside the bytes
+    bound, the plain version's ms (with the exog pack it fed the window)
+    and the kernel's registers and spills. Returns the numbers of the
+    kernels line."""
+    import copy
+
+    from pvderx_torch._struct import tree_map
+    from pvderx_torch.diag.roofline import H100
+    from pvderx_torch.env import core, make_env_config
+    from pvderx_torch.ops.pre_window import pre_window_batch, pre_window_bytes
+    from pvderx_torch.ops.window import U_FIELDS, pack_struct
+
+    cuda = torch.device(device).type == "cuda"
+    cases = 0
+    for i, (preset, dtype, n) in enumerate(
+            (p, d, n) for p in presets for d in dtypes for n in sizes):
+        st, act, act_c, pk = _pre_window_case(preset, dtype, n, device, i)
+        line = dict(launches=0, calls=0, bitwise_calls=0, max_gap=0.0,
+                    clamped=0, at_event=0)
+        for name, kw in PRE_WINDOW_MODES:
+            cfg = make_env_config(preset, dtype=dtype, device=device, **kw)
+            a = (act_c if cfg.continuous else act if cfg.anomaly_detect
+                 else act % core.N_ACTIONS)
+            what = f"pre_window {preset} {dtype} N={n} {name}"
+            inputs = (st, a, pk)
+            before = copy.deepcopy(inputs)
+            launches = pre_window_batch.launches
+            t, exog, mppt, flag, u_pack = core._pre_window(cfg, st, a, pk)
+            moved = pre_window_batch.launches - launches
+            want = _pre_window_leaves(*core._pre_window_plain(cfg, st, a),
+                                      cfg.anomaly_detect)
+            got = _pre_window_leaves(t, exog, mppt, flag, cfg.anomaly_detect)
+            changed = bitwise_differences(before, inputs)
+            if changed:
+                raise AssertionError(f"{what} wrote its inputs: {changed}")
+            diff = bitwise_differences(got, want)
+            loose = ("/exog.q_ref",) if (cfg.voltvar_enable
+                                         and cfg.der.n_ph == 3) else ()
+            strict = [p for p in diff if p not in loose]
+            require_bitwise(f"{what} vs plain {strict}", float(len(strict)))
+            gap = 0.0
+            if diff:
+                g, w = got["exog.q_ref"].double(), want["exog.q_ref"].double()
+                gap = float((g - w).abs().max()) / max(
+                    float(w.abs().max()), 1e-300)
+                if not gap <= PRE_WINDOW_TOL:
+                    raise AssertionError(f"{what}: q_ref {gap} > "
+                                         f"{PRE_WINDOW_TOL}")
+            if cuda and (moved != 1 or u_pack is None
+                         or exog.q_ref.data_ptr() != u_pack[11].data_ptr()
+                         or bitwise_differences(
+                             u_pack, pack_struct(exog, U_FIELDS))):
+                raise AssertionError(f"{what}: {moved} launches, not 1, or "
+                                     f"the exog not the pack's rows")
+            q = want["exog.q_ref"]
+            line["launches"] += moved
+            line["calls"] += 1
+            line["bitwise_calls"] += not diff
+            line["max_gap"] = max(line["max_gap"], gap)
+            line["clamped"] += int(((q == cfg.q_lo) | (q == cfg.q_hi)).sum())
+            cases += 1
+        t = st.t_step.to(dtype) * cfg.dt_ctrl
+        hit = sum((tab[:, 1:, 0] == t[:, None]).any(1)
+                  for tab in (st.sched.solar, st.sched.grid, st.sched.load))
+        line["at_event"] = int((hit > 0).sum())
+        if n >= 1000 and not (line["clamped"] and line["at_event"]):
+            raise AssertionError(f"pre_window {preset} {dtype} N={n}: no "
+                                 f"clamp or no event time hit {line}")
+        phase("pre_window", preset=preset, dtype=str(dtype)[6:], n=n,
+              inputs_unchanged=True, tol=PRE_WINDOW_TOL, **line)
+
+    kernel_ms = plain_ms = bytes_ms = regs = None
+    if timed_n:
+        st, act, _, pk = _pre_window_case("10", torch.float32, sizes[-1],
+                                          device, 99)
+        rep = -(-timed_n // sizes[-1])
+        big = lambda x: (x.repeat(rep, *[1] * (x.dim() - 1))[:timed_n]
+                         if x.dim() else x)
+        st, a = tree_map(big, st), big(act % 5)
+        cfg = make_env_config("10", dtype=torch.float32, device=device)
+        bytes_ms = 1e3 * pre_window_bytes(timed_n) / H100["hbm_bytes_per_s"]
+        if cuda:
+            from pvderx_torch.ops import _build
+
+            kernel_ms = _time_ms(lambda: core._pre_window(cfg, st, a)[0], 20,
+                                 device, ahead=True)
+            plain_ms = _time_ms(lambda: pack_struct(
+                core._pre_window_plain(cfg, st, a)[1], U_FIELDS), 5, device)
+            regs = {k: v for k, v in ptxas_summary(_build.ptxas_report())
+                    .items() if k.startswith("pre_window_kernel")}
+        phase("pre_window", n=timed_n, cases=cases,
+              kernel_ms_per_launch=kernel_ms, bytes_bound_ms=bytes_ms,
+              plain_ms=plain_ms, bytes=pre_window_bytes(timed_n),
+              ptxas=regs)
+    return dict(cases=cases, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                bound_ms=bytes_ms, n=timed_n, ptxas=regs)
+
+
 def native_kernel_rows(nat, chip, n=N_ENVS):
     """The kernels line's rows of N1-N4 from `run_native`'s numbers: each
     with its float64 bound (`roofline.native_bound_ms`) at its timed shape
@@ -3820,20 +4040,21 @@ def native_kernel_rows(nat, chip, n=N_ENVS):
 
 def kernel_name(mangled: str) -> str:
     """`window_kernel<3>`, `native_dp54_kernel<1>`,
-    `post_window_kernel<float,1>` and the like for a window, float64 engine
-    or env glue kernel's mangled or demangled name; any other name as it
-    is."""
+    `post_window_kernel<float,1>`, `pre_window_kernel<float,1,false>` and
+    the like for a window, float64 engine or env glue kernel's mangled or
+    demangled name; any other name as it is."""
     import re
 
-    glue = r"(autoreset_kernel|post_window_kernel)"
-    k = re.search(glue + r"I([fd])((?:Li\d+E)+)E", mangled)
+    glue = r"(autoreset_kernel|post_window_kernel|pre_window_kernel)"
+    k = re.search(glue + r"I([fd])((?:L[ib]\d+E)+)E", mangled)
     if k:
-        args = re.findall(r"Li(\d+)E", k.group(3))
+        args = [{"b0": "false", "b1": "true"}.get(a, a[1:])
+                for a in re.findall(r"L([ib]\d+)E", k.group(3))]
         kind = {"f": "float", "d": "double"}[k.group(2)]
         return f"{k.group(1)}<{kind},{','.join(args)}>"
-    k = re.search(glue + r"<(float|double), *(\d+)>", mangled)
+    k = re.search(glue + r"<(float|double), *([\w, ]+)>", mangled)
     if k:
-        return f"{k.group(1)}<{k.group(2)},{k.group(3)}>"
+        return f"{k.group(1)}<{k.group(2)},{k.group(3).replace(' ', '')}>"
     name = r"((?:fleet_)?window(?:_df)?_kernel|native_[a-z0-9]+_kernel)"
     k = re.search(name + r"I((?:Li\d+E)+)E", mangled)
     if k:
@@ -3895,7 +4116,7 @@ def main() -> int:
 
 
 def run_phases(device, kind, card, clock_mhz) -> int:
-    """Phases 2-38, the kernels line, the card line and the last line."""
+    """Phases 2-39, the kernels line, the card line and the last line."""
     from pvderx_torch.diag import roofline
     from pvderx_torch.ops import _build
 
@@ -3967,6 +4188,8 @@ def run_phases(device, kind, card, clock_mhz) -> int:
     autoreset_out = check_autoreset(device)
     begin("post_window")
     post_window_out = check_post_window(device)
+    begin("pre_window")
+    pre_window_out = check_pre_window(device)
     begin("kernels_line")
     phase("total", seconds=time.perf_counter() - _T0)
 
@@ -4088,6 +4311,20 @@ def run_phases(device, kind, card, clock_mhz) -> int:
         "bound_ms": post_window_out["bound_ms"],
         "bound_by": "bytes",
         "ptxas": post_window_out["ptxas"],
+        "library_ms": None,
+    }, {
+        "name": "pre_window",
+        "route": "cuda",
+        "source": "pvderx_torch/ops/csrc/pre_window.cu",
+        "replaces": None,
+        "launches": main_out["pre_window_launches"],
+        "cases": pre_window_out["cases"],
+        "n": pre_window_out["n"],
+        "ms": pre_window_out["kernel_ms"],
+        "plain_ms": pre_window_out["plain_ms"],
+        "bound_ms": pre_window_out["bound_ms"],
+        "bound_by": "bytes",
+        "ptxas": pre_window_out["ptxas"],
         "library_ms": None,
     }]}), flush=True)
     print(card, flush=True)

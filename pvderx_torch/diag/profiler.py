@@ -90,33 +90,59 @@ def _sync_devices():
 # them). A traced block therefore starts and ends inside this much idle
 # time on the card.
 TRACE_GUARD_S = 0.05
+# On the card's hosts the profiler also drops the first device records it
+# collects, more of them the longer the process has run and captured (on
+# an H100 host, one more in each round of captures 16 s apart, the whole
+# of a three-step block of 18 kernels after ~17 rounds; 10 records and
+# more late in a long `chip_smoke.py`). A capture therefore starts with a
+# warm-up step, whose records the profiler discards, and its active step
+# with a lead-in: each of this many one-element fills on the card, which
+# take that loss in place of the block's first kernels.
+TRACE_LEAD_IN_OPS = 256
+
+
+def _lead_in():
+    x = torch.empty(1, device="cuda")
+    for _ in range(TRACE_LEAD_IN_OPS):
+        x.fill_(0.0)
+    _sync_devices()
+    time.sleep(TRACE_GUARD_S)
 
 
 @contextlib.contextmanager
 def trace(logdir: str | None = None):
     """Capture a `torch.profiler` trace of the block into ``logdir``
     (default: ``pvderx_torch-trace`` under the temp directory); yields the
-    directory. With a card, the block runs between two idle guards of
-    `TRACE_GUARD_S`, the device synced before each."""
+    directory. With a card, a warm-up step (its records discarded) comes
+    first, and the block runs after a lead-in of `TRACE_LEAD_IN_OPS`
+    one-element fills (up to that many fill kernels in the trace) and
+    between two idle guards of `TRACE_GUARD_S`, the device synced before
+    each."""
     from torch.profiler import (
-        ProfilerActivity, profile, tensorboard_trace_handler)
+        ProfilerActivity, profile, schedule, tensorboard_trace_handler)
 
     logdir = logdir or os.path.join(tempfile.gettempdir(), "pvderx_torch-trace")
     acts = [ProfilerActivity.CPU]
     cuda = torch.cuda.is_available()
     if cuda:
         acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts, on_trace_ready=tensorboard_trace_handler(
-            logdir, use_gzip=True)):
+    prof = profile(activities=acts,
+                   schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                   on_trace_ready=tensorboard_trace_handler(
+                       logdir, use_gzip=True))
+    with prof:
         if cuda:
-            _sync_devices()
-            time.sleep(TRACE_GUARD_S)
+            _lead_in()
+        prof.step()                      # the warm-up ends: the block is traced
+        if cuda:
+            _lead_in()
         try:
             yield logdir
         finally:
             _sync_devices()
             if cuda:
                 time.sleep(TRACE_GUARD_S)
+            prof.step()                  # the active step ends: the trace is written
 
 
 # The spans recorded while a profiler records, oldest first, each a list

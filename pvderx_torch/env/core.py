@@ -30,6 +30,7 @@ from pvderx_torch.ode import newton_solve
 from pvderx_torch.ode.implicit import WINDOWS as IMPLICIT_WINDOWS
 from pvderx_torch.ops.autoreset import autoreset_batch, scenario_constants
 from pvderx_torch.ops.post_window import post_window_batch, step_constants
+from pvderx_torch.ops.pre_window import pre_window_batch, pre_window_constants
 from pvderx_torch.ops.window import (
     P_FIELDS, U_FIELDS, pack_struct, pad_draws, pad_envs, pad_tree,
     rk4_window_batch, unpack_struct, unpad_reset)
@@ -421,49 +422,82 @@ def _soft_reset(cfg: EnvConfig, st: EnvState, uv):
     return st2, st.obs0
 
 
-def _pre_window(cfg: EnvConfig, st: EnvState, action):
+def _pre_window(cfg: EnvConfig, st: EnvState, action, p_pack=None):
     """Steps 1-2 of the control interval: action + supervisory layer.
 
-    Returns (t, exog, mppt, flag) with exog zero-order-held over the window.
-    """
+    Returns (t, exog, mppt, flag, u_pack), the exog zero-order-held over
+    the window. On the card this is one kernel launch
+    (`ops.pre_window.pre_window_batch`): ``u_pack`` is its [15, N] exog
+    pack, the exog views of the pack's rows, and ``flag`` None without
+    ``cfg.anomaly_detect``; with Volt-VAR or MPPT it reads the params pack
+    ``p_pack`` (packed here where it is None). On the CPU the plain
+    version `_pre_window_plain`, which the tests and `chip_smoke.py` hold
+    the kernel to, with ``u_pack`` None. No input is written."""
     with span("env.pre_window"):
-        dtype = st.y.dtype
-        t = st.t_step.to(dtype) * cfg.dt_ctrl
+        if st.y.device.type == "cpu":
+            return (*_pre_window_plain(cfg, st, action), None)
+        sup = cfg.voltvar_enable or cfg.mppt_enable
+        if sup and p_pack is None:
+            p_pack = pack_struct(st.der, P_FIELDS)
+        sched, mppt, mppt_on = st.sched, st.mppt, cfg.mppt_enable
+        out = pre_window_batch(dict(
+            t_step=st.t_step, q_ref=st.q_ref, vdc_ref=st.vdc_ref,
+            tripped=st.rt.tripped, ces=st.rt.ces,
+            action=action.to(st.y.dtype if cfg.continuous else torch.int64),
+            solar=sched.solar, grid=sched.grid, load=sched.load,
+            y=st.y if sup else None, p=p_pack if sup else None,
+            p_prev=mppt.p_prev if mppt_on else None,
+            direction=mppt.direction if mppt_on else None),
+            pre_window_constants(cfg), n_ph=cfg.der.n_ph, n_mppt=cfg.n_mppt,
+            continuous=cfg.continuous, anomaly=cfg.anomaly_detect,
+            voltvar=cfg.voltvar_enable, mppt=mppt_on)
+        if mppt_on:
+            mppt = MPPTState(p_prev=out["p_prev"],
+                             direction=out["direction"])
+        return (out["t"], unpack_struct(Exog, out["u"], U_FIELDS), mppt,
+                out.get("flag"), out["u"])
 
-        # 1. agent action -> setpoint nudges (ignored for auto-controlled
-        # fields)
-        q_ref = st.q_ref
-        vdc_ref = st.vdc_ref
-        flag = torch.zeros_like(q_ref)
-        if cfg.continuous:
-            # continuous extension: action [N, 2] in [-1,1] scales the deltas
-            a = torch.clamp(action.to(dtype), -1.0, 1.0)
-            dq, dv = cfg.dq_action * a[:, 0], cfg.dv_action * a[:, 1]
-        else:
-            a = action
-            dq = cfg.dq_action * ((a == 1).to(dtype) - (a == 2).to(dtype))
-            dv = cfg.dv_action * ((a == 3).to(dtype) - (a == 4).to(dtype))
-            if cfg.anomaly_detect:
-                flag = (a == 5).to(dtype)   # "flag anomaly"
-        if not cfg.voltvar_enable:
-            q_ref = torch.clamp(q_ref + dq, cfg.q_lo, cfg.q_hi)
-        if not cfg.mppt_enable:
-            vdc_ref = torch.clamp(vdc_ref + dv, cfg.v_lo, cfg.v_hi)
 
-        # 2. supervisory layer at window start (SPEC §8; ZOH over the window)
-        conn = 1.0 - st.rt.tripped
-        exog = make_exog(st.sched, t, vdc_ref, q_ref, conn, st.rt.ces)
-        mppt = st.mppt
-        if cfg.voltvar_enable or cfg.mppt_enable:
-            g0 = _algebra(st.y, t, st.der, exog)
-            if cfg.voltvar_enable:
-                q_ref = voltvar_qref(torch.hypot(g0.v_pos.re, g0.v_pos.im),
-                                     cfg.q_vv)
-            if cfg.mppt_enable:
-                mppt, vdc_ref = mppt_update(mppt, vdc_ref, g0.p_pv, st.t_step,
-                                            cfg.n_mppt)
-            exog = replace(exog, vdc_ref=vdc_ref, q_ref=q_ref)
-        return t, exog, mppt, flag
+def _pre_window_plain(cfg: EnvConfig, st: EnvState, action):
+    """The plain version of `_pre_window`: torch operations on [N] columns.
+    Returns (t, exog, mppt, flag)."""
+    dtype = st.y.dtype
+    t = st.t_step.to(dtype) * cfg.dt_ctrl
+
+    # 1. agent action -> setpoint nudges (ignored for auto-controlled
+    # fields)
+    q_ref = st.q_ref
+    vdc_ref = st.vdc_ref
+    flag = torch.zeros_like(q_ref)
+    if cfg.continuous:
+        # continuous extension: action [N, 2] in [-1,1] scales the deltas
+        a = torch.clamp(action.to(dtype), -1.0, 1.0)
+        dq, dv = cfg.dq_action * a[:, 0], cfg.dv_action * a[:, 1]
+    else:
+        a = action
+        dq = cfg.dq_action * ((a == 1).to(dtype) - (a == 2).to(dtype))
+        dv = cfg.dv_action * ((a == 3).to(dtype) - (a == 4).to(dtype))
+        if cfg.anomaly_detect:
+            flag = (a == 5).to(dtype)   # "flag anomaly"
+    if not cfg.voltvar_enable:
+        q_ref = torch.clamp(q_ref + dq, cfg.q_lo, cfg.q_hi)
+    if not cfg.mppt_enable:
+        vdc_ref = torch.clamp(vdc_ref + dv, cfg.v_lo, cfg.v_hi)
+
+    # 2. supervisory layer at window start (SPEC §8; ZOH over the window)
+    conn = 1.0 - st.rt.tripped
+    exog = make_exog(st.sched, t, vdc_ref, q_ref, conn, st.rt.ces)
+    mppt = st.mppt
+    if cfg.voltvar_enable or cfg.mppt_enable:
+        g0 = _algebra(st.y, t, st.der, exog)
+        if cfg.voltvar_enable:
+            q_ref = voltvar_qref(torch.hypot(g0.v_pos.re, g0.v_pos.im),
+                                 cfg.q_vv)
+        if cfg.mppt_enable:
+            mppt, vdc_ref = mppt_update(mppt, vdc_ref, g0.p_pv, st.t_step,
+                                        cfg.n_mppt)
+        exog = replace(exog, vdc_ref=vdc_ref, q_ref=q_ref)
+    return t, exog, mppt, flag
 
 
 def _anomaly_active(st: EnvState, exog):
@@ -568,13 +602,15 @@ def step(cfg: EnvConfig, st: EnvState, action, p_pack=None):
     `ops.window.rk4_window_batch`: the CUDA kernel for tensors on the card,
     its plain version for tensors on the CPU. ``p_pack`` is the [29, N]
     params pack, hoisted by callers that step the same params many times (it
-    is computed here when omitted); it and the exog pack go on to
-    `_post_window`. The implicit schemes integrate `rhs_core.rhs` through
-    `ode.implicit` (no kernel; no pack is made), on the CPU over the batch
-    padded as the plain windows pad theirs (`ops.window.pad_envs`), so
-    that an env's step does not depend on the batch size."""
-    t, exog, mppt, flag = _pre_window(cfg, st, action)
-    u_pack = None
+    is computed here when omitted); it and the exog pack (`_pre_window`'s on
+    the card) go on to `_post_window`. The implicit schemes integrate
+    `rhs_core.rhs` through `ode.implicit` (no kernel; no params pack is
+    made), on the CPU over the batch padded as the plain windows pad theirs
+    (`ops.window.pad_envs`), so that an env's step does not depend on the
+    batch size."""
+    if p_pack is None and cfg.integrator == "rk4":
+        p_pack = pack_struct(st.der, P_FIELDS)
+    t, exog, mppt, flag, u_pack = _pre_window(cfg, st, action, p_pack)
     with span("env.window"):
         if cfg.integrator != "rk4":
             n = st.y.shape[0]
@@ -584,9 +620,8 @@ def step(cfg: EnvConfig, st: EnvState, action, p_pack=None):
                         exog=pad_tree(n, exog)),
                 y, tp, cfg.dt_ctrl, cfg.n_sub)[:n]
         else:
-            if p_pack is None:
-                p_pack = pack_struct(st.der, P_FIELDS)
-            u_pack = pack_struct(exog, U_FIELDS)
+            if u_pack is None:
+                u_pack = pack_struct(exog, U_FIELDS)
             y1 = rk4_window_batch(st.y, t, p_pack, u_pack,
                                   n_ph=cfg.der.n_ph, n_sub=cfg.n_sub,
                                   dt=cfg.dt_ctrl)

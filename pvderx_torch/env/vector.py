@@ -57,16 +57,19 @@ def make_batch_fns(cfg: core.EnvConfig, mesh=None):
 def _step_df_impl(cfg: core.EnvConfig, carry, actions, generator,
                   p_pack=None, mesh=None):
     """The df32 step of every env: `core._pre_window`, the double-float
-    window, `core._post_window` on hi (the window's packs passed on), then
-    the autoreset (`core.restart_done`), which zeroes y_lo where done (the
-    cached y0 is an exact-f32 episode anchor)."""
+    window, `core._post_window` on hi (the window's packs passed on, the
+    exog's as the pre-window made it on the card), then the autoreset
+    (`core.restart_done`), which zeroes y_lo where done (the cached y0 is
+    an exact-f32 episode anchor)."""
     state, y_lo = carry
     with span("env.step"):
-        t, exog, mppt, flag = core._pre_window(cfg, state, actions)
+        if p_pack is None:
+            p_pack = pack_struct(state.der, P_FIELDS)
+        t, exog, mppt, flag, u_pack = core._pre_window(cfg, state, actions,
+                                                       p_pack)
         with span("env.window"):
-            if p_pack is None:
-                p_pack = pack_struct(state.der, P_FIELDS)
-            u_pack = pack_struct(exog, U_FIELDS)
+            if u_pack is None:
+                u_pack = pack_struct(exog, U_FIELDS)
             y1, y1_lo = rk4_window_batch_df(
                 state.y, y_lo, t, p_pack, u_pack,
                 n_ph=cfg.der.n_ph, n_sub=cfg.n_sub, dt=cfg.dt_ctrl)

@@ -29,9 +29,10 @@ CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# flags of one source beside NVCC_FLAGS: post_window.cu rounds every + - *
-# once, as torch's one-operation kernels do (no FMA contraction)
-SOURCE_FLAGS = {"post_window.cu": ["-fmad=false"]}
+# flags of one source beside NVCC_FLAGS: the glue kernels round every
+# + - * once, as torch's one-operation kernels do (no FMA contraction)
+SOURCE_FLAGS = {"post_window.cu": ["-fmad=false"],
+                "pre_window.cu": ["-fmad=false"]}
 
 _PTR, _INT, _F32, _F64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                           ctypes.c_double)
@@ -64,6 +65,10 @@ ENTRIES = {
     # the env step's post-window glue (post_window.cu):
     # (in pointers, out pointers, constants, n, n_ph, horizon, dtype, stream)
     "pvderx_post_window": ([_PTR] * 3 + [_INT] * 4 + [_PTR], _INT),
+    # the env step's pre-window glue (pre_window.cu): (in pointers, out
+    # pointers, constants, n, n_ph, the three tables' rows, n_mppt, modes,
+    # dtype, stream)
+    "pvderx_pre_window": ([_PTR] * 3 + [_INT] * 8 + [_PTR], _INT),
     "pvderx_error_string": ([_INT], ctypes.c_char_p),
 }
 

@@ -31,7 +31,8 @@
 // - this file is compiled without FMA contraction (-fmad=false:
 //   pvderx_torch/ops/_build.py, SOURCE_FLAGS), so each + - * rounds once,
 //   as in torch's one-operation kernels, in rhs_core's order; rhs.cuh's
-//   feeder and PCC voltage pieces are reused as they round the same here;
+//   feeder and PCC voltage pieces are reused as they round the same here,
+//   and glue.cuh's one-operation helpers, shared with pre_window.cu;
 // - the transcendentals are those torch's CUDA kernels call: sin, cos,
 //   exp, hypot of T;
 // - a Python scalar is rounded once to T, as torch casts it to the
@@ -53,7 +54,7 @@
 #include <cstddef>
 #include <cuda_runtime.h>
 
-#include "rhs.cuh"
+#include "glue.cuh"
 
 namespace {
 
@@ -80,49 +81,6 @@ enum Const {
   cRTrip, cRAnomTp, cRAnomFp, cRAnomFn, kNumConst
 };
 
-__device__ __forceinline__ float sin_(float x) { return sinf(x); }
-__device__ __forceinline__ double sin_(double x) { return sin(x); }
-__device__ __forceinline__ float cos_(float x) { return cosf(x); }
-__device__ __forceinline__ double cos_(double x) { return cos(x); }
-__device__ __forceinline__ float hypot_(float a, float b) {
-  return hypotf(a, b);
-}
-__device__ __forceinline__ double hypot_(double a, double b) {
-  return hypot(a, b);
-}
-__device__ __forceinline__ float abs_(float x) { return fabsf(x); }
-__device__ __forceinline__ double abs_(double x) { return fabs(x); }
-
-// torch.clamp(x, min=lo) and torch.maximum(a, b): a NaN passes through
-template <typename T>
-__device__ __forceinline__ T clamp_min(T x, T lo) {
-  return isnan(x) ? x : pvderx::max_t(x, lo);
-}
-template <typename T>
-__device__ __forceinline__ T maximum(T a, T b) {
-  return isnan(a) ? a : isnan(b) ? b : pvderx::max_t(a, b);
-}
-
-// torch's CUDA mean over the phase axis: the sum from +0 (so a -0 of one
-// phase reads +0, as torch's reduction gives it), times 1/N rounded in T
-template <typename T, int N>
-__device__ __forceinline__ T phase_mean(const T (&x)[N]) {
-  T s = lit<T>(0.0);
-#pragma unroll
-  for (int k = 0; k < N; ++k) s = s + x[k];
-  return s * (lit<T>(1.0) / lit<T>(N));
-}
-
-// component r of phase k's term of a positive sequence: x * conj(a_k)
-// (x itself at one phase, where a_k = 1 and rhs_core skips the rotation)
-template <typename T, int N, class R>
-__device__ __forceinline__ T pos_term(R r, int k, const T (&re)[N],
-                                      const T (&im)[N], const T (&ak_re)[N],
-                                      const T (&ak_im)[N]) {
-  if (N == 1) return pvderx::pick(r, re[k], im[k]);
-  return pvderx::cmul(r, re[k], im[k], ak_re[k], -ak_im[k]);
-}
-
 template <typename T>
 struct Args {
   const T *y, *t;
@@ -144,6 +102,7 @@ __device__ __forceinline__ void step_env(const Args<T>& a, size_t e,
                                          size_t n, const T (&y)[6 * NPH + 5],
                                          T (&tm)[ZONES], T* obs) {
   using namespace pvderx;
+  using namespace pvderx::glue;
   const auto P = [&](int k) { return a.p[k * n + e]; };   // params row k
   const auto U = [&](int k) { return a.u[k * n + e]; };   // exog row k
   const T* c = a.c;
@@ -239,7 +198,7 @@ __device__ __forceinline__ void step_env(const Args<T>& a, size_t e,
   for (int k = 0; k < ZONES; ++k) {
     const T z = (in_zone[k] ? one : zero) * a.enable[k];
     tm[k] = (tm[k] + c[cDt]) * z;
-    trip = pvderx::max_t(trip, tm[k] > a.t_lim[k] ? one : zero);
+    trip = max_t(trip, tm[k] > a.t_lim[k] ? one : zero);
     if (k == 1) ces = z;
   }
   const T tripped0 = a.tripped[e];

@@ -2,8 +2,8 @@
 
 - `ops/_build.library_path` hashes every ``*.cu`` and ``*.cuh`` under
   ``csrc/`` with the nvcc flags, so an edit to a header shared by the kernels
-  (``rhs.cuh``, ``df.cuh``) names a new library instead of loading a stale
-  one.
+  (``rhs.cuh``, ``df.cuh``, ``glue.cuh``) names a new library instead of
+  loading a stale one.
 - A source's own nvcc flags (`_build.SOURCE_FLAGS`) rename the library and
   reach that source's command only.
 - Every ``extern "C"`` entry of ``csrc/*.cu``, parsed from the source text,
@@ -33,24 +33,25 @@ import torch
 
 from pvderx_torch.env import core
 from pvderx_torch.native import kernels
-from pvderx_torch.ops import _build, autoreset, dualfloat, post_window, window
+from pvderx_torch.ops import (
+    _build, autoreset, dualfloat, post_window, pre_window, window)
 
 
 def test_torch_build_library_name_covers_every_device_source(tmp_path):
     src = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, src)
     names = {p.name for p in src.iterdir()}
-    assert {"rhs.cuh", "df.cuh", "window.cu", "fleet_window.cu",
-            "window_df.cu", "native.cu", "autoreset.cu",
-            "post_window.cu"} <= names
+    assert {"rhs.cuh", "df.cuh", "glue.cuh", "window.cu", "fleet_window.cu",
+            "window_df.cu", "native.cu", "autoreset.cu", "post_window.cu",
+            "pre_window.cu"} <= names
     base = _build.library_path(src)
     assert base == _build.library_path()          # same sources, same name
     assert base.parent == _build.BUILD_DIR
 
     seen = {base}
-    for name in ("rhs.cuh", "df.cuh", "window.cu", "fleet_window.cu",
-                 "window_df.cu", "native.cu", "autoreset.cu",
-                 "post_window.cu"):
+    for name in ("rhs.cuh", "df.cuh", "glue.cuh", "window.cu",
+                 "fleet_window.cu", "window_df.cu", "native.cu",
+                 "autoreset.cu", "post_window.cu", "pre_window.cu"):
         f = src / name
         text = f.read_text()
         f.write_text(text + "\n// edited\n")
@@ -66,15 +67,17 @@ def test_torch_build_library_name_covers_every_device_source(tmp_path):
 
 def test_torch_build_source_flags_name_the_library_and_reach_nvcc(
         tmp_path, monkeypatch):
-    """A source's own flags (`SOURCE_FLAGS`: post_window.cu is compiled
-    without FMA contraction) are part of the library's name and of that
-    source's nvcc command only."""
-    assert _build.SOURCE_FLAGS == {"post_window.cu": ["-fmad=false"]}
+    """A source's own flags (`SOURCE_FLAGS`: the two glue kernels are
+    compiled without FMA contraction) are part of the library's name and of
+    that source's nvcc command only."""
+    glue = ("post_window.cu", "pre_window.cu")
+    assert _build.SOURCE_FLAGS == dict.fromkeys(glue, ["-fmad=false"])
     base = _build.library_path()
-    monkeypatch.setitem(_build.SOURCE_FLAGS, "post_window.cu", [])
-    assert _build.library_path() != base
-    monkeypatch.setitem(_build.SOURCE_FLAGS, "post_window.cu", ["-fmad=false"])
-    assert _build.library_path() == base
+    for name in glue:
+        monkeypatch.setitem(_build.SOURCE_FLAGS, name, [])
+        assert _build.library_path() != base
+        monkeypatch.setitem(_build.SOURCE_FLAGS, name, ["-fmad=false"])
+        assert _build.library_path() == base
     calls = []
 
     class FakeNvcc:
@@ -94,7 +97,7 @@ def test_torch_build_source_flags_name_the_library_and_reach_nvcc(
     assert set(by_source) == {p.name for p in _build.CSRC.glob("*.cu")}
     for name, cmd in by_source.items():
         assert cmd[1:1 + len(_build.NVCC_FLAGS)] == _build.NVCC_FLAGS
-        assert ("-fmad=false" in cmd) == (name == "post_window.cu"), name
+        assert ("-fmad=false" in cmd) == (name in glue), name
 
 
 _C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
@@ -121,7 +124,8 @@ def test_torch_build_declares_every_c_entry():
             "pvderx_rk4_window_df", "pvderx_native_rhs",
             "pvderx_native_rk4_window", "pvderx_native_dp54_window",
             "pvderx_native_newton_steady", "pvderx_autoreset",
-            "pvderx_post_window", "pvderx_error_string"} <= set(found)
+            "pvderx_post_window", "pvderx_pre_window",
+            "pvderx_error_string"} <= set(found)
     assert set(found) == set(_build.ENTRIES)
     for name, (res, params) in found.items():
         args, restype = _build.ENTRIES[name]
@@ -166,6 +170,19 @@ def _post_window_args():
             dict(n_ph=1, horizon=cfg.horizon))
 
 
+def _pre_window_args():
+    """A Volt-VAR and MPPT pre-window's inputs on ``meta``."""
+    cfg = core.make_env_config("10", voltvar_enable=True, mppt_enable=True,
+                               device="cpu")
+    y, _, pk, _ = _single(F32)
+    ins = {k: _m(N) for k in pre_window.IN_LEAVES}
+    ins.update(t_step=_m(N, dtype=torch.int32),
+               action=_m(N, dtype=torch.int64), solar=_m(N, 4, 3),
+               grid=_m(N, 4, 6), load=_m(N, 2, 3), y=y, p=pk)
+    return ((ins, pre_window.pre_window_constants(cfg)),
+            dict(n_ph=1, n_mppt=cfg.n_mppt, voltvar=True, mppt=True))
+
+
 # launcher name -> (its C entry, a call on meta tensors)
 LAUNCHERS = {
     "rk4_window_batch": ("pvderx_rk4_window", lambda: window.rk4_window_batch(
@@ -193,8 +210,11 @@ LAUNCHERS = {
     "post_window_batch": (
         "pvderx_post_window", lambda: post_window.post_window_batch(
             *_post_window_args()[0], **_post_window_args()[1])),
+    "pre_window_batch": (
+        "pvderx_pre_window", lambda: pre_window.pre_window_batch(
+            *_pre_window_args()[0], **_pre_window_args()[1])),
 }
-_MODULES = (window, dualfloat, kernels, autoreset, post_window)
+_MODULES = (window, dualfloat, kernels, autoreset, post_window, pre_window)
 
 
 def _kind(arg):

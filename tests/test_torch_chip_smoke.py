@@ -14,7 +14,8 @@
   naming it and exit code 1; a subprocess past its timeout is stopped and
   named with its phase and the end of its stderr (`wait_for`).
 - `kernel_name` reads the env glue kernels' names (`autoreset_kernel`,
-  `post_window_kernel`, templated over the type and the phases).
+  `post_window_kernel`, templated over the type and the phases;
+  `pre_window_kernel`, also over whether the supervisory layer runs).
 - Phase 38 (`check_post_window`) runs on the CPU and fails on a one-bit
   difference or a write into its inputs.
 - Phase 35 (`run_notebooks`) runs `run_cells --device cpu --tiny`;
@@ -126,6 +127,28 @@ def test_torch_chip_smoke_glue_kernel_names():
               "registers, used 0 barriers, 6656 bytes smem\n")
     assert ptxas_summary(report) == {"post_window_kernel<float,1>": dict(
         spill_stores=0, spill_loads=0, registers=48)}
+
+
+def test_torch_chip_smoke_pre_window_kernel_names():
+    """The pre-window kernel, templated over the type, the phases and the
+    supervisory layer, by its mangled and demangled names and in a ptxas
+    report."""
+    pre = ("_ZN46_GLOBAL__N__8c99af9f_13_pre_window_cu_ad9432e417"
+           "pre_window_kernel")
+    assert kernel_name(f"{pre}IfLi1ELb0EEEvNS_4ArgsIT_EEi") \
+        == "pre_window_kernel<float,1,false>"
+    assert kernel_name(f"{pre}IdLi3ELb1EEEvNS_4ArgsIT_EEi") \
+        == "pre_window_kernel<double,3,true>"
+    assert kernel_name("void (anonymous namespace)::pre_window_kernel<float, "
+                       "1, false>((anonymous namespace)::Args<float>, int)") \
+        == "pre_window_kernel<float,1,false>"
+    report = (f"ptxas info    : Compiling entry function '{pre}IfLi1ELb0EEEvNS"
+              "_4ArgsIT_EEi' for 'sm_90a'\nptxas info    : Function properties "
+              f"for {pre}IfLi1ELb0EEEvNS_4ArgsIT_EEi\n    0 bytes stack frame, "
+              "0 bytes spill stores, 0 bytes spill loads\nptxas info    : Used "
+              "32 registers, used 1 barriers\n")
+    assert ptxas_summary(report) == {"pre_window_kernel<float,1,false>": dict(
+        spill_stores=0, spill_loads=0, registers=32)}
 
 
 def test_torch_chip_smoke_sass_issue_floor_flat_and_looped():

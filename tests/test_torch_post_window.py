@@ -179,7 +179,7 @@ def test_torch_step_leaves_inputs_untouched_and_keeps_aliases(path):
     else:
         st, _ = make_batch_fns(cfg)[0](8, gen)
         before = copy.deepcopy(st)
-        _, exog, _, _ = core._pre_window(cfg, st, act)
+        _, exog, *_ = core._pre_window(cfg, st, act)
         st1, obs, reward, done, info = core.step(cfg, st, act)
         assert torch.equal(st1.vdc_ref, exog.vdc_ref)
     assert not cs.bitwise_differences(before, carry if path == "df" else st)
