@@ -3893,14 +3893,21 @@ def check_pre_window(device, presets=PRE_WINDOW_PRESETS,
     bit for bit (t, the 15 exog rows, the MPPT state, the anomaly flag),
     but the Volt-VAR setpoint at three phases, within `PRE_WINDOW_TOL`;
     on the card the exog views of the kernel's [15, N] pack, inputs
-    untouched, one launch a call. Then ms per launch at ``timed_n`` envs
+    untouched, one launch a call. With Volt-VAR the call runs under a
+    profiler, so that its ``env.pre_window`` span has a counter (the
+    kernel's counting variant on the card), which must equal the plain
+    version's setpoints off 0. Then ms per launch at ``timed_n`` envs
     (the last size's case repeated; None: not timed) beside the bytes
     bound, the plain version's ms (with the exog pack it fed the window)
     and the kernel's registers and spills. Returns the numbers of the
     kernels line."""
+    import contextlib
     import copy
 
+    from torch.profiler import ProfilerActivity, profile
+
     from pvderx_torch._struct import tree_map
+    from pvderx_torch.diag import profiler
     from pvderx_torch.diag.roofline import H100
     from pvderx_torch.env import core, make_env_config
     from pvderx_torch.ops.pre_window import pre_window_batch, pre_window_bytes
@@ -3912,7 +3919,7 @@ def check_pre_window(device, presets=PRE_WINDOW_PRESETS,
             (p, d, n) for p in presets for d in dtypes for n in sizes):
         st, act, act_c, pk = _pre_window_case(preset, dtype, n, device, i)
         line = dict(launches=0, calls=0, bitwise_calls=0, max_gap=0.0,
-                    clamped=0, at_event=0)
+                    clamped=0, at_event=0, voltvar_active=0)
         for name, kw in PRE_WINDOW_MODES:
             cfg = make_env_config(preset, dtype=dtype, device=device, **kw)
             a = (act_c if cfg.continuous else act if cfg.anomaly_detect
@@ -3921,10 +3928,23 @@ def check_pre_window(device, presets=PRE_WINDOW_PRESETS,
             inputs = (st, a, pk)
             before = copy.deepcopy(inputs)
             launches = pre_window_batch.launches
-            t, exog, mppt, flag, u_pack = core._pre_window(cfg, st, a, pk)
+            profiler.clear()
+            with (profile(activities=[ProfilerActivity.CPU])
+                  if cfg.voltvar_enable else contextlib.nullcontext()):
+                t, exog, mppt, flag, u_pack = core._pre_window(cfg, st, a,
+                                                               pk)
             moved = pre_window_batch.launches - launches
+            counted = [r["count"] for r in profiler.records()]
+            profiler.clear()
             want = _pre_window_leaves(*core._pre_window_plain(cfg, st, a),
                                       cfg.anomaly_detect)
+            q = want["exog.q_ref"]
+            if cfg.voltvar_enable:
+                active = int((q != 0).sum())
+                if counted != [active]:
+                    raise AssertionError(f"{what}: counted {counted} "
+                                         f"setpoints off 0, not {active}")
+                line["voltvar_active"] += active
             got = _pre_window_leaves(t, exog, mppt, flag, cfg.anomaly_detect)
             changed = bitwise_differences(before, inputs)
             if changed:
@@ -3948,7 +3968,6 @@ def check_pre_window(device, presets=PRE_WINDOW_PRESETS,
                              u_pack, pack_struct(exog, U_FIELDS))):
                 raise AssertionError(f"{what}: {moved} launches, not 1, or "
                                      f"the exog not the pack's rows")
-            q = want["exog.q_ref"]
             line["launches"] += moved
             line["calls"] += 1
             line["bitwise_calls"] += not diff

@@ -21,8 +21,9 @@
   `records()` returns. With no profiler recording it does nothing.
 - `counter(name, total, device)`: inside a recorded span of that name, a
   device slot in which the span's work counts how many of ``total`` items
-  it touched (the autoreset: the envs it restarted); `records()` gives
-  the span's record that ``count`` and ``total``.
+  it touched (the autoreset: the envs it restarted; the pre-window with
+  Volt-VAR: the envs whose setpoint the curve moved off 0); `records()`
+  gives the span's record that ``count`` and ``total``.
 - `Stopwatch`: chained-state throughput timing, synced by `force_sync` at
   its start and by a device sync at its end.
 """

@@ -432,10 +432,17 @@ def _pre_window(cfg: EnvConfig, st: EnvState, action, p_pack=None):
     ``cfg.anomaly_detect``; with Volt-VAR or MPPT it reads the params pack
     ``p_pack`` (packed here where it is None). On the CPU the plain
     version `_pre_window_plain`, which the tests and `chip_smoke.py` hold
-    the kernel to, with ``u_pack`` None. No input is written."""
+    the kernel to, with ``u_pack`` None. No input is written. With
+    Volt-VAR, inside a recorded ``env.pre_window`` span the envs whose
+    setpoint the curve moved off 0 are counted (`diag.profiler.counter`)."""
     with span("env.pre_window"):
+        slot = (counter("env.pre_window", st.y.shape[0], st.y.device)
+                if cfg.voltvar_enable else None)
         if st.y.device.type == "cpu":
-            return (*_pre_window_plain(cfg, st, action), None)
+            t, exog, mppt, flag = _pre_window_plain(cfg, st, action)
+            if slot is not None:
+                slot += (exog.q_ref != 0).sum()
+            return t, exog, mppt, flag, None
         sup = cfg.voltvar_enable or cfg.mppt_enable
         if sup and p_pack is None:
             p_pack = pack_struct(st.der, P_FIELDS)
@@ -448,9 +455,10 @@ def _pre_window(cfg: EnvConfig, st: EnvState, action, p_pack=None):
             y=st.y if sup else None, p=p_pack if sup else None,
             p_prev=mppt.p_prev if mppt_on else None,
             direction=mppt.direction if mppt_on else None),
-            pre_window_constants(cfg), n_ph=cfg.der.n_ph, n_mppt=cfg.n_mppt,
-            continuous=cfg.continuous, anomaly=cfg.anomaly_detect,
-            voltvar=cfg.voltvar_enable, mppt=mppt_on)
+            pre_window_constants(cfg), count=slot, n_ph=cfg.der.n_ph,
+            n_mppt=cfg.n_mppt, continuous=cfg.continuous,
+            anomaly=cfg.anomaly_detect, voltvar=cfg.voltvar_enable,
+            mppt=mppt_on)
         if mppt_on:
             mppt = MPPTState(p_prev=out["p_prev"],
                              direction=out["direction"])

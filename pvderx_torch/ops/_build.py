@@ -66,9 +66,9 @@ ENTRIES = {
     # (in pointers, out pointers, constants, n, n_ph, horizon, dtype, stream)
     "pvderx_post_window": ([_PTR] * 3 + [_INT] * 4 + [_PTR], _INT),
     # the env step's pre-window glue (pre_window.cu): (in pointers, out
-    # pointers, constants, n, n_ph, the three tables' rows, n_mppt, modes,
-    # dtype, stream)
-    "pvderx_pre_window": ([_PTR] * 3 + [_INT] * 8 + [_PTR], _INT),
+    # pointers, constants, Volt-VAR's count, n, n_ph, the three tables'
+    # rows, n_mppt, modes, dtype, stream)
+    "pvderx_pre_window": ([_PTR] * 4 + [_INT] * 8 + [_PTR], _INT),
     "pvderx_error_string": ([_INT], ctypes.c_char_p),
 }
 

@@ -25,7 +25,10 @@
 // odd stride so that the threads' reads meet no bank conflict; the packs
 // are field-major and the other leaves [N] columns, read and written
 // directly, so every access is coalesced. Every output is a fresh tensor:
-// no input is written.
+// no input is written. With Volt-VAR and a counter slot (`active`, else
+// null), each block counts its envs whose setpoint the curve moved off 0
+// (`__syncthreads_count`) and adds them to the slot with one atomic; the
+// kernels without the supervisory layer have no such code.
 //
 // Bitwise equality with the eager version on the card (glue.cuh):
 // - this file is compiled without FMA contraction (-fmad=false), so each
@@ -84,6 +87,7 @@ struct Args {
   const T* action_c;       // continuous
   const T *solar, *grid, *load, *y, *p, *p_prev, *direction;
   T *u, *t, *flag, *p_prev_o, *direction_o;
+  unsigned long long* active;   // Volt-VAR's count of moved setpoints
   T c[kNumConst];
   int ks, kg, kl, n_mppt, modes;
 };
@@ -200,9 +204,9 @@ __device__ __forceinline__ void start_algebra(const T (&y)[6 * N + 5], T t,
 }
 
 // `_pre_window_plain` of env e: its tables' rows and (with SUP) its state
-// y in shared memory
+// y in shared memory. Returns whether Volt-VAR set a q_ref other than 0.
 template <typename T, int NPH, bool SUP>
-__device__ __forceinline__ void step_env(const Args<T>& a, size_t e,
+__device__ __forceinline__ bool step_env(const Args<T>& a, size_t e,
                                          size_t n, const T* solar,
                                          const T* grid, const T* load,
                                          const T* ys) {
@@ -239,6 +243,7 @@ __device__ __forceinline__ void step_env(const Args<T>& a, size_t e,
                     vdc_ref * zero};
 
   // the supervisory layer on the algebra at the window start
+  bool moved = false;
   if (SUP) {
     T y[6 * NPH + 5];
 #pragma unroll
@@ -247,7 +252,10 @@ __device__ __forceinline__ void step_env(const Args<T>& a, size_t e,
     const auto U = [&](int k) { return u[k]; };
     T v_mag, p_pv;
     start_algebra<T, NPH>(y, t, P, U, v_mag, p_pv);
-    if (a.modes & kVoltvar) u[Q_REF] = voltvar_qref(v_mag, c);
+    if (a.modes & kVoltvar) {
+      u[Q_REF] = voltvar_qref(v_mag, c);
+      moved = u[Q_REF] != zero;
+    }
     if (a.modes & kMppt) {   // mppt_update
       int r = t_step % a.n_mppt;   // torch's remainder: the divisor's sign
       if (r != 0 && ((r < 0) != (a.n_mppt < 0))) r += a.n_mppt;
@@ -264,6 +272,7 @@ __device__ __forceinline__ void step_env(const Args<T>& a, size_t e,
 #pragma unroll
   for (int k = 0; k < N_UFIELDS; ++k) a.u[k * n + e] = u[k];
   a.t[e] = t;
+  return moved;
 }
 
 template <typename T, int NPH, bool SUP>
@@ -284,10 +293,17 @@ __global__ void __launch_bounds__(BLOCK) pre_window_kernel(const Args<T> a,
   if (SUP) stage_rows(ys, a.y + e0 * NS, m, NS);
   __syncthreads();
   const int i = threadIdx.x;
+  bool moved = false;
   if (i < m) {
-    step_env<T, NPH, SUP>(a, e0 + i, static_cast<size_t>(n),
-                          solar + i * (ws | 1), grid + i * (wg | 1),
-                          load + i * (wl | 1), ys + i * (NS | 1));
+    moved = step_env<T, NPH, SUP>(a, e0 + i, static_cast<size_t>(n),
+                                  solar + i * (ws | 1), grid + i * (wg | 1),
+                                  load + i * (wl | 1), ys + i * (NS | 1));
+  }
+  if constexpr (SUP) {   // every thread of the block reaches the count
+    const int k = __syncthreads_count(moved);
+    if (threadIdx.x == 0 && a.active != nullptr && k > 0) {
+      atomicAdd(a.active, static_cast<unsigned long long>(k));
+    }
   }
 }
 
@@ -308,9 +324,9 @@ int launch_kernel(const Args<T>& a, int n, cudaStream_t s) {
 }
 
 template <typename T>
-int launch(const void* const* in, void* const* out, const double* c, int n,
-           int n_ph, int ks, int kg, int kl, int n_mppt, int modes,
-           cudaStream_t s) {
+int launch(const void* const* in, void* const* out, const double* c,
+           unsigned long long* active, int n, int n_ph, int ks, int kg,
+           int kl, int n_mppt, int modes, cudaStream_t s) {
   Args<T> a;
   auto I = [&](int k) { return static_cast<const T*>(in[k]); };
   auto O = [&](int k) { return static_cast<T*>(out[k]); };
@@ -323,6 +339,7 @@ int launch(const void* const* in, void* const* out, const double* c, int n,
   a.p = I(kP); a.p_prev = I(kPPrev); a.direction = I(kDirection);
   a.u = O(oU); a.t = O(oT); a.flag = O(oFlag); a.p_prev_o = O(oPPrev);
   a.direction_o = O(oDirection);
+  a.active = active;
   for (int k = 0; k < kNumConst; ++k) a.c[k] = static_cast<T>(c[k]);
   a.ks = ks; a.kg = kg; a.kl = kl;
   a.n_mppt = n_mppt;
@@ -333,6 +350,7 @@ int launch(const void* const* in, void* const* out, const double* c, int n,
       || ((modes & kContinuous) && (modes & kAnomaly))
       || ((a.flag == nullptr) == bool(modes & kAnomaly))
       || ((a.y == nullptr || a.p == nullptr) == sup)
+      || (active != nullptr && !(modes & kVoltvar))
       || ((a.p_prev == nullptr || a.direction == nullptr
            || a.p_prev_o == nullptr || a.direction_o == nullptr) == mppt)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -353,23 +371,26 @@ int launch(const void* const* in, void* const* out, const double* c, int n,
 // in: kNumIn pointers (y and p null without Volt-VAR or MPPT; p_prev and
 // direction null without MPPT), out: kNumOut pointers (flag null without
 // the anomaly flag; p_prev and direction null without MPPT), consts:
-// kNumConst doubles; ks, kg, kl: the row counts of the solar, grid and
-// load tables; n_mppt: the MPPT period in steps; modes: the bits of Mode;
-// dtype 0 float32, 1 float64
+// kNumConst doubles; active: with Volt-VAR, a uint64 slot to which the
+// kernel adds the envs whose q_ref it set off 0, or null; ks, kg, kl: the
+// row counts of the solar, grid and load tables; n_mppt: the MPPT period
+// in steps; modes: the bits of Mode; dtype 0 float32, 1 float64
 extern "C" int pvderx_pre_window(const void* in, const void* out,
-                                 const void* consts, int n, int n_ph, int ks,
-                                 int kg, int kl, int n_mppt, int modes,
-                                 int dtype, void* stream) {
+                                 const void* consts, void* active, int n,
+                                 int n_ph, int ks, int kg, int kl,
+                                 int n_mppt, int modes, int dtype,
+                                 void* stream) {
   if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
   auto i = static_cast<const void* const*>(in);
   auto o = static_cast<void* const*>(out);
   auto c = static_cast<const double*>(consts);
+  auto v = static_cast<unsigned long long*>(active);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return launch<float>(i, o, c, n, n_ph, ks, kg, kl, n_mppt, modes, s);
+    return launch<float>(i, o, c, v, n, n_ph, ks, kg, kl, n_mppt, modes, s);
   }
   if (dtype == 1) {
-    return launch<double>(i, o, c, n, n_ph, ks, kg, kl, n_mppt, modes, s);
+    return launch<double>(i, o, c, v, n, n_ph, ks, kg, kl, n_mppt, modes, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -7,7 +7,9 @@ with the anomaly flag where the config has it), the clamps of the
 setpoints, the event-table lookups of `scenario.events.make_exog` and, with
 Volt-VAR or MPPT, the supervisory layer on the algebra at the window start.
 It writes the exog straight into the [15, N] pack that the window kernels
-read (`ops.window.U_FIELDS` order), so nothing stacks it again. It takes
+read (`ops.window.U_FIELDS` order), so nothing stacks it again. With
+Volt-VAR it can count the envs whose setpoint the curve moved off 0 (one
+atomic a block into a slot of `diag.profiler.counter`). It takes
 and returns tensors: every leaf it computes (`OUT_LEAVES`) a fresh tensor,
 no input written. `env.core._pre_window` routes between the two, this
 kernel for tensors on the card and the plain version for tensors on the
@@ -58,9 +60,10 @@ def pre_window_bytes(n: int, dtype=torch.float32) -> int:
     return n * (reads + writes)
 
 
-def pre_window_batch(ins: dict, consts, *, n_ph: int, n_mppt: int,
-                     continuous: bool = False, anomaly: bool = False,
-                     voltvar: bool = False, mppt: bool = False):
+def pre_window_batch(ins: dict, consts, count=None, *, n_ph: int,
+                     n_mppt: int, continuous: bool = False,
+                     anomaly: bool = False, voltvar: bool = False,
+                     mppt: bool = False):
     """The pre-window glue of a batch in one kernel launch.
 
     ins: {name: tensor} of every leaf in `IN_LEAVES`: ``t_step`` [N]
@@ -71,7 +74,10 @@ def pre_window_batch(ins: dict, consts, *, n_ph: int, n_mppt: int,
     pack ``p`` [29, N], else None; with ``mppt`` the P&O state ``p_prev``
     and ``direction`` [N], else None. consts: `pre_window_constants` of
     the config. Every tensor contiguous, on one CUDA device, float32 or
-    float64 but for t_step and a discrete action. Returns {name: tensor}:
+    float64 but for t_step and a discrete action. count: with
+    ``voltvar``, a one-element int64 slot on the card into which the kernel
+    adds the envs whose Volt-VAR setpoint is not 0 (`diag.profiler.counter`),
+    or None. Returns {name: tensor}:
     ``u``, the [15, N] exog pack, and ``t`` [N], the window's start; with
     ``anomaly`` the flag [N]; with ``mppt`` the new ``p_prev`` and
     ``direction`` [N]. Each a fresh tensor; no input is written. Each
@@ -98,6 +104,9 @@ def pre_window_batch(ins: dict, consts, *, n_ph: int, n_mppt: int,
             raise ValueError(
                 f"{k} must be {kind} {shape} on {dev}, got {a.dtype} "
                 f"{tuple(a.shape)} on {a.device}")
+    if count is not None and (count.dtype != torch.int64 or not voltvar):
+        raise ValueError(f"count must be an int64 slot, with Volt-VAR; got "
+                         f"{count.dtype}, voltvar={voltvar}")
     out = {"u": torch.empty(len(U_FIELDS), n, dtype=dtype, device=dev),
            "t": torch.empty(n, dtype=dtype, device=dev)}
     if anomaly:
@@ -109,8 +118,8 @@ def pre_window_batch(ins: dict, consts, *, n_ph: int, n_mppt: int,
         (continuous, anomaly, voltvar, mppt)) if on)
     _build.launch("pvderx_pre_window", "pre-window",
                   tuple(ins[k] for k in IN_LEAVES),
-                  tuple(out.get(k) for k in OUT_LEAVES), list(consts), n,
-                  n_ph, *ks, n_mppt, modes, _DTYPES[dtype],
+                  tuple(out.get(k) for k in OUT_LEAVES), list(consts),
+                  count, n, n_ph, *ks, n_mppt, modes, _DTYPES[dtype],
                   check=list(out.values()))
     pre_window_batch.launches += 1
     return out

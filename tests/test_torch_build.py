@@ -212,7 +212,8 @@ LAUNCHERS = {
             *_post_window_args()[0], **_post_window_args()[1])),
     "pre_window_batch": (
         "pvderx_pre_window", lambda: pre_window.pre_window_batch(
-            *_pre_window_args()[0], **_pre_window_args()[1])),
+            *_pre_window_args()[0], _m(1, dtype=torch.int64),
+            **_pre_window_args()[1])),
 }
 _MODULES = (window, dualfloat, kernels, autoreset, post_window, pre_window)
 

@@ -259,7 +259,7 @@ def test_torch_pre_window_sends_other_devices_to_the_kernel(mode, cases,
         else:                                   # packed where it is None
             assert ins["p"].shape == (len(P_FIELDS), n)
         assert consts == ops_pre_window.pre_window_constants(cfg)
-        assert kw == dict(n_ph=3, n_mppt=cfg.n_mppt,
+        assert kw == dict(count=None, n_ph=3, n_mppt=cfg.n_mppt,
                           continuous=cfg.continuous,
                           anomaly=cfg.anomaly_detect,
                           voltvar=cfg.voltvar_enable, mppt=cfg.mppt_enable)
@@ -428,7 +428,7 @@ def test_torch_pre_window_wrapper_refuses_bad_leaves(fault, monkeypatch):
     assert list(args[1]) == [None if k not in out else out[k].data_ptr()
                              for k in ops_pre_window.OUT_LEAVES]
     assert list(args[2]) == consts
-    assert args[3:] == (5, 1, 4, 4, 2, cfg.n_mppt, 8, 0, 77)
+    assert args[3:] == (None, 5, 1, 4, 4, 2, cfg.n_mppt, 8, 0, 77)
 
 
 def test_torch_pre_window_wrapper_refuses_the_cpu():
