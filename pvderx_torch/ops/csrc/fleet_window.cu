@@ -20,7 +20,7 @@
 // What the design does about it: one thread per (env, unit), so a thread
 // keeps the single-DER kernel's register footprint (one unit's state, Kahan
 // carry, accumulator and Prep) and the window runs without touching device
-// memory; and it issues fewer instructions per unit (2587 per substep, was
+// memory; and it issues fewer instructions per unit (2515 per substep, was
 // 3014):
 // - The grid phasors, the same for every unit of an env, are computed once
 //   per env: the lanes of an env's group take the substeps in turns (below),
@@ -28,6 +28,8 @@
 // - The soft limiters' x^(-1/16) is exp2f and log2f, not powf (rhs.cuh's
 //   pow_sat), and the mean injection multiplies the sum by a hoisted 1/M
 //   (exact when M is a power of two) instead of two divides.
+// - Each unit's RHS reads the window constants K1 folds once a window
+//   (rhs_f32.cuh), the mean injection in place of the DER's own.
 // The units of one env sit in adjacent lanes: a group of G lanes, G
 // the next power of two >= M (G <= 32), so the M-sum of the 2*n_ph injected
 // current components is a __shfl_xor_sync butterfly inside the warp. When
@@ -53,7 +55,7 @@
 // field-major [29, N, M] and [15, N, M] (neighbouring threads read
 // neighbouring addresses). Any N >= 1; 1 <= M <= 1024 (one block per env at
 // most).
-#include "rhs.cuh"
+#include "rhs_f32.cuh"
 
 namespace {
 
@@ -115,8 +117,10 @@ fleet_window_kernel(const float* __restrict__ y_in,
   Unit<float, N> wu;
   load_unit(wu, P, U);
   Feeder<float, N> fd;
-  load_feeder(fd, wu.ak_re, wu.ak_im, P0, U0);
-  const float share = valid ? wu.conn : 0.0f;   // padded lanes add 0
+  load_feeder_f32(fd, P0, U0);
+  Folded<N> z;
+  fold_window(z, wu, fd);
+  const float share = valid ? z.conn : 0.0f;   // padded lanes add 0
   const float inv_m = 1.0f / static_cast<float>(m);   // exact for M = 2^k
   const int warp = unit >> 5, lane = threadIdx.x & 31;
 
@@ -137,9 +141,8 @@ fleet_window_kernel(const float* __restrict__ y_in,
       ii_re[k] = s[k] * inv_m;
       ii_im[k] = s[N + k] * inv_m;
     }
-    pcc_voltage<float, N>(ii_re, ii_im, rot_re, rot_im, fd, wu.ak_re,
-                          wu.ak_im, v_re, v_im);
-    rhs_given_v<float, N>(ys, v_re, v_im, wu, dy);
+    pcc_voltage(ii_re, ii_im, rot_re, rot_im, z, v_re, v_im);
+    rhs_given_v(ys, v_re, v_im, z, dy);
   };
 
   // The grid phasors, once per env: the g lanes of a group (a warp's 32

@@ -1,10 +1,11 @@
 // The PV-DER right-hand side on one thread, shared by the window kernels.
 //
 // A device restatement of pvderx_torch/physics/rhs_core.py's hoisted path,
-// written once over the scalar type T: float for the float32 kernels
-// (window.cu, fleet_window.cu), df (df.cuh, double-float32) for the df32
-// kernel (window_df.cu), double for the float64 engine (native.cu) -- one
-// set of equations, as rhs_core runs on one namespace per precision.
+// written once over the scalar type T: float for the float32 kernels'
+// loads and shared pieces (through rhs_f32.cuh), df (df.cuh,
+// double-float32) for the df32 kernel (window_df.cu), double for the
+// float64 engine (native.cu) -- one set of equations, as rhs_core runs on
+// one namespace per precision.
 // Literals go through lit<T>(double); the transcendentals (sqrt_t, exp_t,
 // sincos_t, pow_sat, max_t, min_t) are overloaded per type. Split as
 // rhs_core splits it:
@@ -12,15 +13,20 @@
 //     local load, `Feeder`) and the injected current;
 //   - rhs_given_v: algebra_given_v + rhs_from_algebra of one DER (`Unit`)
 //     at a given PCC voltage.
-// The single-DER kernel (window.cu) calls the pair with the DER's own
-// injection; the fleet kernel (fleet_window.cu) calls pcc_voltage with the
-// mean injection of the units on the feeder, then rhs_given_v per unit.
+// The float64 engine (native.cu) calls the pair with the DER's own
+// injection, as the df32 kernel (window_df.cu) does at one phase. The
+// float32 kernels (window.cu, fleet_window.cu) call the pair of
+// rhs_f32.cuh instead, over the window constants folded once from
+// load_unit and load_feeder (the fleet kernel with the mean injection of
+// the units on the feeder): the fold reassociates float arithmetic, which
+// the df32 and float64 kernels' bitwise contracts do not allow.
 // Both are written as calls to small pieces (one equation of rhs_core
 // each), most of them one component of a complex quantity under a role
 // (Re, Im, or a run-time Lane): the df32 kernel's two-lane team
 // (window_df.cu) calls the same pieces, each lane for its own component.
 //
-// Arithmetic follows rhs_core operation by operation, in the same order.
+// Arithmetic follows rhs_core operation by operation, in the same order
+// (rhs_f32.cuh's float pair reassociates it).
 // In float, nvcc contracts a*b+c into FMAs, so results are not bitwise equal
 // to the plain torch version; the Kahan steps contain no products, so
 // contraction cannot break them (df arithmetic uses rounded intrinsics and

@@ -3,27 +3,35 @@
 // Replaces the TPU kernel pvderx/ops/window.py::_window_kernel (called by
 // pvderx.ops.window.rk4_window_batch). For every env it integrates one
 // control window: n_sub classical RK4 substeps of the PV-DER right-hand side
-// (rhs.cuh, restating pvderx_torch/physics/rhs_core.py), exog held constant
-// over the window.
+// (rhs_f32.cuh over rhs.cuh, restating pvderx_torch/physics/rhs_core.py),
+// exog held constant over the window.
 //
-// What bounds it on this card: instruction issue. One substep is ~923
-// operations per env at one phase (2371 at three) -- 4 RHS evaluations
-// with sin/cos/exp, the soft limiters' x^(-1/16), square roots and
-// divides, 2 grid rotations, the Kahan combine -- while the whole window
-// moves ~268 bytes per env (one read of t0, y, p_pack[29], u_pack[15] and
-// one write of y1, all f32). In SASS a substep is 1712 instructions at
-// one phase (3186 at three), ~1.9 per operation, and at 32768 envs one
-// thread per env gives 7.76 warps per SM, two per scheduler: K1 runs at
-// ~1.3x the time the SMs need to issue its static substep loop, the rest
-// the latency of its dependent chains, which two warps per scheduler
-// cannot hide (PERF.md).
+// What bounds it on this card: instruction issue, and at three phases the
+// latency of its dependent chains as well. One substep is ~923 operations
+// per env at one phase (2371 at three) -- 4 RHS evaluations with sin/cos/exp,
+// the soft limiters' x^(-1/16), square roots and a divide, 2 grid rotations,
+// the Kahan combine -- while the whole window moves ~268 bytes per env (one
+// read of t0, y, p_pack[29], u_pack[15] and one write of y1, all f32). At
+// 2097152 envs each of the 528 warp schedulers runs 124 of the grid's
+// warps. At one phase (109 registers, 18 warps an SM) a warp-substep takes
+// ~1480 cycles for its 1648 static SASS instructions: about one issued a
+// cycle, the rest branches that do not run (sincosf's large-argument
+// path). At three phases (160 registers, 12 warps an SM, 3 a scheduler) it
+// takes ~2910 cycles for 2616, 1.11x: latency that three warps cannot hide
+// (PERF.md).
 //
 // What the design does about it: one thread per env holds its 11 (or 23)
-// states, the Kahan carry, the RK4 accumulator and the window-invariant
-// `Prep` in registers, and runs all n_sub substeps without touching device
-// memory. A shorter chain: the soft limiters' x^(-1/16) is exp2f and
-// log2f, not powf's ~50-instruction sequence, eight times per substep at
-// one phase (rhs.cuh's pow_sat). The RK4 stages are unrolled (rhs.cuh's
+// states, the Kahan carry, the RK4 accumulator and the window's constants in
+// registers, and runs all n_sub substeps without touching device memory.
+// The substep issues only what changes in it: a prologue folds every
+// window-invariant quantity once (rhs_f32.cuh's fold_window: constant
+// three-phase rotators with no products at phase 0, the phase means' 1/N in
+// the gains in place of five IEEE divides an RHS, the PCC voltage as
+// rot*cg_k + ii*iyt, no product of constants in the rates), which cut a
+// substep from 1712 SASS instructions to 1648 at one phase and from 3186 to
+// 2616 at three, and K1's time by 3.4% and 21%. A shorter chain: the soft
+// limiters' x^(-1/16) is exp2f and log2f, not powf's ~50-instruction
+// sequence (rhs.cuh's pow_sat). The RK4 stages are unrolled (rhs.cuh's
 // rk4_window). Two layouts were measured and dropped (PERF.md):
 // the stages rolled into a loop, 8% slower at one phase; a two-lane team
 // per env (lane 0 the re component of every piece, lane 1 the im one, as
@@ -33,7 +41,7 @@
 // Layout: y and y1 are [N, n_s] row-major; t0 is [N]; p and u are
 // field-major [29, N] and [15, N] (neighbouring threads read neighbouring
 // addresses). Any N >= 1: the last block masks the ragged edge.
-#include "rhs.cuh"
+#include "rhs_f32.cuh"
 
 namespace {
 
@@ -56,7 +64,9 @@ window_kernel(const float* __restrict__ y_in, const float* __restrict__ t0_in,
   Unit<float, N> w;
   load_unit(w, P, U);
   Feeder<float, N> fd;
-  load_feeder(fd, w.ak_re, w.ak_im, P, U);
+  load_feeder_f32(fd, P, U);
+  Folded<N> z;
+  fold_window(z, w, fd);
 
   // rhs_core.rhs: the DER's own injection sets its PCC voltage
   auto rhs = [&](const float (&ys)[NS], float rot_re, float rot_im,
@@ -64,12 +74,11 @@ window_kernel(const float* __restrict__ y_in, const float* __restrict__ t0_in,
     float ii_re[N], ii_im[N], v_re[N], v_im[N];
 #pragma unroll
     for (int k = 0; k < N; ++k) {
-      ii_re[k] = ys[k] * w.conn;
-      ii_im[k] = ys[N + k] * w.conn;
+      ii_re[k] = ys[k] * z.conn;
+      ii_im[k] = ys[N + k] * z.conn;
     }
-    pcc_voltage<float, N>(ii_re, ii_im, rot_re, rot_im, fd, w.ak_re, w.ak_im,
-                          v_re, v_im);
-    rhs_given_v<float, N>(ys, v_re, v_im, w, dy);
+    pcc_voltage(ii_re, ii_im, rot_re, rot_im, z, v_re, v_im);
+    rhs_given_v(ys, v_re, v_im, z, dy);
   };
 
   const float t0 = t0_in[e];

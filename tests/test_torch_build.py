@@ -2,8 +2,8 @@
 
 - `ops/_build.library_path` hashes every ``*.cu`` and ``*.cuh`` under
   ``csrc/`` with the nvcc flags, so an edit to a header shared by the kernels
-  (``rhs.cuh``, ``df.cuh``, ``glue.cuh``) names a new library instead of
-  loading a stale one.
+  (``rhs.cuh``, ``rhs_f32.cuh``, ``df.cuh``, ``glue.cuh``) names a new
+  library instead of loading a stale one.
 - A source's own nvcc flags (`_build.SOURCE_FLAGS`) rename the library and
   reach that source's command only.
 - Every ``extern "C"`` entry of ``csrc/*.cu``, parsed from the source text,
@@ -41,15 +41,15 @@ def test_torch_build_library_name_covers_every_device_source(tmp_path):
     src = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, src)
     names = {p.name for p in src.iterdir()}
-    assert {"rhs.cuh", "df.cuh", "glue.cuh", "window.cu", "fleet_window.cu",
-            "window_df.cu", "native.cu", "autoreset.cu", "post_window.cu",
-            "pre_window.cu"} <= names
+    assert {"rhs.cuh", "rhs_f32.cuh", "df.cuh", "glue.cuh", "window.cu",
+            "fleet_window.cu", "window_df.cu", "native.cu", "autoreset.cu",
+            "post_window.cu", "pre_window.cu"} <= names
     base = _build.library_path(src)
     assert base == _build.library_path()          # same sources, same name
     assert base.parent == _build.BUILD_DIR
 
     seen = {base}
-    for name in ("rhs.cuh", "df.cuh", "glue.cuh", "window.cu",
+    for name in ("rhs.cuh", "rhs_f32.cuh", "df.cuh", "glue.cuh", "window.cu",
                  "fleet_window.cu", "window_df.cu", "native.cu",
                  "autoreset.cu", "post_window.cu", "pre_window.cu"):
         f = src / name

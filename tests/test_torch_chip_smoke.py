@@ -107,6 +107,44 @@ def test_torch_chip_smoke_kernel_name_short_forms():
                        "const*, float*, int, int, float)") == "window_kernel<3>"
 
 
+def test_torch_chip_smoke_k1_names_are_what_the_roofline_readers_match():
+    """The benchmark's K1 readers find K1 by name: `k1_roofline_pct.K1`
+    every K1 template, `k1_3ph_roofline_pct.K1_3PH` the three-phase one
+    alone; neither reads K2. The kernels' names and template arguments are
+    taken from what `window.cu` and `fleet_window.cu` launch and mangled
+    as nvcc does, so a renamed K1, which would leave a cell's roofline
+    share unread, fails here before a chip runs it."""
+    import re
+
+    from portbench.metrics.k1_3ph_roofline_pct import K1_3PH
+    from portbench.metrics.k1_roofline_pct import K1
+    from pvderx_torch.ops import _build
+
+    def launched(src, args):
+        """(kernel, template arguments) of each launch in ``src``."""
+        text = (_build.CSRC / src).read_text()
+        return re.findall(r"(\w+)<(" + args + r")><<<", text)
+
+    def mangled(name, args):
+        targs = "".join(f"Li{a.strip()}E" for a in args.split(","))
+        return f"_ZN12_GLOBAL__N_1{len(name)}{name}I{targs}EEvPKfS2_S2_S2_Pfiifff"
+
+    k1 = {int(args): kernel_name(mangled(name, args))
+          for name, args in launched("window.cu", r"\d+")}
+    assert k1 == {1: "window_kernel<1>", 3: "window_kernel<3>"}
+    assert K1.search(k1[1]) and K1.search(k1[3])
+    assert K1_3PH.search(k1[3])
+    assert not K1_3PH.search(k1[1])
+    k2 = [kernel_name(mangled(name, f"{n_ph}, {threads}"))
+          for name, _ in launched("fleet_window.cu", r"[\w, ]+")
+          for n_ph in (1, 3) for threads in (256, 1024)]
+    assert k2 == [f"fleet_window_kernel<{n_ph},{threads}>"
+                  for n_ph in (1, 3) for threads in (256, 1024)]
+    for name in (*k2, "void (anonymous namespace)::fleet_window_kernel<3, "
+                      "1024>(float const*, float const*, int)"):
+        assert not K1.search(name) and not K1_3PH.search(name), name
+
+
 def test_torch_chip_smoke_glue_kernel_names():
     """The env glue kernels, templated over the type and the phases, by
     their mangled and their demangled names; none reads as K1."""
